@@ -37,6 +37,14 @@ from .executor import (
     validate_spike_outputs,
 )
 from .network import run_network, run_network_layerwise
+from .temporal_runtime import (
+    TemporalReport,
+    choose_temporal_mode,
+    temporal_lif,
+    temporal_project_dense,
+    temporal_project_sparse,
+    temporal_step,
+)
 
 from . import parallel_runtime as _par_rt
 from . import serial_runtime as _ser_rt
@@ -61,4 +69,6 @@ __all__ = [
     "OutputValidationError", "validate_spike_outputs",
     "get_layer_executable", "network_executable",
     "release_network_executable", "lowering_counts",
+    "TemporalReport", "choose_temporal_mode", "temporal_lif",
+    "temporal_project_dense", "temporal_project_sparse", "temporal_step",
 ]

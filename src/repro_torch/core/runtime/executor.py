@@ -40,6 +40,13 @@ reference.  Spike state crossing timesteps is int8 (spikes are exactly
 The timestep ``t`` is a host integer and nothing in the loop reads a
 device value back: a launch enqueues its whole T-step run, and the
 all-0/1 output self-check stays on the device (:attr:`last_check`).
+
+:meth:`NetworkExecutable.run_temporal` is the second launch path, the
+temporal-parallel paradigm (:mod:`.temporal_runtime`): feed-forward
+populations compute all T steps at once, and only the back-edge interval
+of the topological order runs through :func:`_scan_network`.  Its
+iterative reset resolution reads one spike-flip count back per
+fixed-point pass; nothing else on that path syncs.
 """
 from __future__ import annotations
 
@@ -70,6 +77,13 @@ from .serial_runtime import (
     serial_project_dense,
     serial_project_sparse,
     sparse_serial_operands,
+)
+from .temporal_runtime import (
+    TemporalReport,
+    choose_temporal_mode,
+    temporal_lif,
+    temporal_project_dense,
+    temporal_project_sparse,
 )
 
 
@@ -240,6 +254,14 @@ _SERIAL_FORMS = {
 }
 
 
+def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
+    """(T, B, 1) 0/1 mask of the live steps of each batch slot, or None."""
+    if valid_steps is None:
+        return None
+    steps = torch.arange(spikes.shape[0], device=spikes.device)
+    return (steps[:, None] < valid_steps[None, :]).to(spikes.dtype)[:, :, None]
+
+
 def _scan_network(
     plan: GraphPlan,
     metas: Tuple[LayerMeta, ...],
@@ -261,12 +283,8 @@ def _scan_network(
     outputs are bit-identical to running that request alone.
     """
     T, batch = spikes.shape[0], spikes.shape[1]
-    live = None
-    if valid_steps is not None:
-        live = (
-            torch.arange(T, device=spikes.device)[:, None]
-            < valid_steps[None, :]
-        ).to(spikes.dtype)[:, :, None]                    # (T, B, 1)
+    live = _live_mask(spikes, valid_steps)
+    if live is not None:
         spikes = spikes * live
 
     proj_states, pop_v, pop_z, feedback = states
@@ -325,6 +343,142 @@ def _scan_network(
     return outs
 
 
+@dataclasses.dataclass(frozen=True)
+class TemporalPlan:
+    """The graph plan's temporal-parallel decomposition.
+
+    ``update_order`` splits into three contiguous topological intervals:
+    ``pre`` and ``post`` populations have no back-edge coupling and run
+    whole-train (all T steps at once); the ``block`` interval — from the
+    earliest back-edge target to the latest back-edge source — keeps its
+    step-serial rings and runs through the ordinary loop on ``sub_plan``,
+    reading the already-computed ``ext_sources`` trains as its external
+    input.  A pure feed-forward graph has an empty block and runs
+    entirely whole-train.
+    """
+
+    pre: Tuple[int, ...]
+    block: Tuple[int, ...]
+    post: Tuple[int, ...]
+    ext_sources: Tuple[int, ...]      # pops whose trains feed the block
+    sub_plan: GraphPlan | None        # step-serial plan of the block
+    modes: dict                       # temporal pop -> reset-resolution mode
+
+
+def _temporal_split(plan: GraphPlan):
+    """Split ``update_order`` into (pre, block, post) around back-edges."""
+    order = plan.update_order
+    backs = [i for i, b in enumerate(plan.proj_back) if b]
+    if not backs:
+        return order, (), ()
+    pos = {p: k for k, p in enumerate(order)}
+    lo = min(pos[plan.proj_tgt[i]] for i in backs)
+    # a back-edge source outside update_order (an input population) never
+    # extends the block: its train is external, not produced by the loop
+    hi = max(pos.get(plan.proj_src[i], -1) for i in backs)
+    hi = max(hi, lo)
+    return order[:lo], order[lo : hi + 1], order[hi + 1 :]
+
+
+def _temporal_subplan(plan: GraphPlan, block: Tuple[int, ...]):
+    """The block's step-serial plan: same populations/projections, but the
+    update order is the block interval and every out-of-block source pop
+    (original inputs and whole-train pre populations alike) becomes an
+    input population reading a column range of the augmented train."""
+    bset = frozenset(block)
+    ext = sorted(
+        {
+            plan.proj_src[ei]
+            for p in block
+            for ei in plan.in_edges[p]
+            if plan.proj_src[ei] not in bset
+        }
+    )
+    slices, off = [], 0
+    for s in ext:
+        w = plan.pop_sizes[s]
+        slices.append((off, off + w))
+        off += w
+    sub = dataclasses.replace(
+        plan,
+        input_pops=tuple(ext),
+        input_slices=tuple(slices),
+        update_order=tuple(block),
+    )
+    return tuple(ext), sub
+
+
+def _temporal_network(
+    plan: GraphPlan,
+    metas: Tuple[LayerMeta, ...],
+    forms: Tuple[str, ...],      # per proj: serial forms + "temporal[_sparse]"
+    tplan: TemporalPlan,
+    max_iters: int,
+    params: List[Tuple[torch.Tensor, ...]],
+    states,                      # block carry (updated in place); () if none
+    spikes: torch.Tensor,        # (T, B, n_input) f32
+    valid_steps: torch.Tensor | None = None,
+):
+    """Whole-train executor: no loop over time for feed-forward segments.
+
+    Masking follows the fused path's contract exactly — the input train
+    is masked once up front, intermediate trains run unmasked (padded
+    steps of a causal network can only influence padded outputs), and
+    the per-population outputs are masked once at the end — so the live
+    prefix is bit-identical to a solo run and padded steps emit exact
+    zeros.  Returns the per-population trains (``update_order``) and
+    ``{pop: (iterations, residual)}`` for the whole-train populations.
+    """
+    live = _live_mask(spikes, valid_steps)
+    if live is not None:
+        spikes = spikes * live
+
+    pop_out = [None] * len(plan.pop_sizes)
+    for p, (a, b) in zip(plan.input_pops, plan.input_slices):
+        pop_out[p] = (
+            spikes if (a, b) == (0, spikes.shape[2]) else spikes[:, :, a:b]
+        )
+    aux = {}
+
+    def whole_train(p):
+        i_full = None                                    # (T, B, n) current
+        for ei in plan.in_edges[p]:
+            meta = metas[ei]
+            x = pop_out[plan.proj_src[ei]]
+            if forms[ei] == "temporal_sparse":
+                i_e = temporal_project_sparse(
+                    *params[ei], x, delay_range=meta.delay_range,
+                    n_target=meta.n_target,
+                )
+            else:
+                i_e = temporal_project_dense(params[ei][0], x)
+            i_full = i_e if i_full is None else i_full + i_e
+        z, iters, residual = temporal_lif(
+            i_full, alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
+            mode=tplan.modes[p], max_iters=max_iters,
+        )
+        pop_out[p] = z
+        aux[p] = (iters, residual)
+
+    for p in tplan.pre:
+        whole_train(p)
+    if tplan.block:
+        aug = [pop_out[s] for s in tplan.ext_sources]
+        aug = aug[0] if len(aug) == 1 else torch.cat(aug, dim=2)
+        block_outs = _scan_network(
+            tplan.sub_plan, metas, forms, params, states, aug, None,
+        )
+        for p, z in zip(tplan.block, block_outs):
+            pop_out[p] = z
+    for p in tplan.post:
+        whole_train(p)
+
+    outs = [pop_out[p] for p in plan.update_order]
+    if live is not None:
+        outs = [z * live for z in outs]
+    return outs, aux
+
+
 class NetworkExecutable:
     """A whole compiled application graph, lowered once, run in one loop."""
 
@@ -353,6 +507,9 @@ class NetworkExecutable:
         self.cost_model = cost_model or DEFAULT_SERIAL_BATCH_COST
         self._dense = {}     # layer index -> (d_slots, S, T) dense operand
         self._sparse = {}    # layer index -> (ell_val, ell_idx) ELL operands
+        self._temporal = {}  # layer index -> parallel WDM as (d_slots, S, T)
+        self._nonneg = {}    # layer index -> all weights >= 0
+        self._tplan = None   # cached TemporalPlan
         #: Device bool tensor from the last launch: True iff every output
         #: entry was exactly 0.0 or 1.0 (NaN/Inf equal neither).  Computed
         #: on the device after the loop and never read back by the launch,
@@ -471,16 +628,127 @@ class NetworkExecutable:
             self._sparse[i] = ell
         return ell
 
+    # -- temporal-parallel structure and forms -------------------------------
+    def _weights_nonneg(self, i: int) -> bool:
+        v = self._nonneg.get(i)
+        if v is None:
+            w = self.params[i][0].cpu().numpy()   # row_weight | wdm_stack
+            v = bool(w.size == 0 or w.min() >= 0)
+            self._nonneg[i] = v
+        return v
+
+    def _temporal_structure(self) -> TemporalPlan:
+        """The (cached) temporal decomposition of this graph plan."""
+        tp = self._tplan
+        if tp is None:
+            pre, block, post = _temporal_split(self.plan)
+            if block:
+                ext, sub = _temporal_subplan(self.plan, block)
+            else:
+                ext, sub = (), None
+            modes = {}
+            for p in pre + post:
+                nonneg = all(
+                    self._weights_nonneg(ei)
+                    for ei in self.plan.in_edges[p]
+                )
+                modes[p] = choose_temporal_mode(
+                    self.plan.pop_alpha[p], self.plan.pop_vth[p],
+                    nonneg_weights=nonneg,
+                )
+            tp = TemporalPlan(
+                pre=pre, block=block, post=post, ext_sources=ext,
+                sub_plan=sub, modes=modes,
+            )
+            self._tplan = tp
+        return tp
+
+    def temporal_forms(
+        self, batch: int, steps: int, serial_form: str = "auto"
+    ) -> Tuple[str, ...]:
+        """Per-projection form for the temporal launch path.
+
+        Projections targeting the step-serial block keep their ordinary
+        serial form (same three-way choice as :meth:`serial_forms`);
+        projections targeting whole-train populations run ``"temporal"``
+        (one dense whole-train contraction) or ``"temporal_sparse"``
+        (one ELL gather over all T·B spike columns), picked by the cost
+        model's operand comparison — or forced to the matching operand by
+        ``serial_form``.  Like every form, the choice never changes
+        outputs.
+        """
+        tp = self._temporal_structure()
+        bset = frozenset(tp.block)
+        base = self.serial_forms(batch, serial_form)
+        forms = []
+        for i, meta in enumerate(self.metas):
+            if self.plan.proj_tgt[i] in bset:
+                forms.append(base[i])
+                continue
+            if meta.paradigm == "parallel":
+                if not self.cost_model.dense_fits(
+                    meta.n_source, meta.n_target, meta.delay_range
+                ):  # pragma: no cover - parallel compile densifies under cap
+                    raise ValueError(
+                        "parallel projection too large for the whole-train "
+                        "dense operand; run a non-temporal path"
+                    )
+                forms.append("temporal")
+                continue
+            dense_ok = self.cost_model.dense_fits(
+                meta.n_source, meta.n_target, meta.delay_range
+            )
+            if serial_form == "sparse" or not dense_ok:
+                forms.append("temporal_sparse")
+            elif serial_form == "dense":
+                forms.append("temporal")
+            else:
+                operand = self.cost_model.temporal_operand(
+                    meta.n_rows, meta.n_source, meta.n_target,
+                    meta.delay_range, batch,
+                )
+                forms.append(
+                    "temporal" if operand == "dense" else "temporal_sparse"
+                )
+        return tuple(forms)
+
+    def _temporal_param(self, i: int) -> Tuple[torch.Tensor, ...]:
+        """The whole-train dense operand: the serial dense (d_slots, S, T)
+        weights verbatim, or the parallel WDM stack scattered back into
+        the same delay-stacked layout on the host (integer accumulation —
+        exact), moved to the device once and cached."""
+        meta = self.metas[i]
+        if meta.paradigm == "serial":
+            return self._dense_param(i)
+        w = self._temporal.get(i)
+        if w is None:
+            wdm, col_src, col_dly = (a.cpu().numpy() for a in self.params[i])
+            w_np = np.zeros(
+                (meta.delay_range + 1, meta.n_source, meta.n_target),
+                np.float32,
+            )
+            np.add.at(w_np, (col_dly, col_src), wdm.T.astype(np.float32))
+            w = torch.as_tensor(w_np, device=self.device)
+            self._temporal[i] = w
+        return (w,)
+
     def _params_for(self, forms: Tuple[str, ...]) -> List[Tuple]:
-        per_form = {"dense": self._dense_param, "sparse": self._sparse_param}
+        per_form = {
+            "dense": self._dense_param,
+            "sparse": self._sparse_param,
+            "temporal": self._temporal_param,
+            "temporal_sparse": self._sparse_param,
+        }
         return [
             per_form[form](i) if form in per_form else p
             for i, (form, p) in enumerate(zip(forms, self.params))
         ]
 
-    def _record_forms(self, batch: int, forms: Tuple[str, ...]) -> None:
+    def _record_forms(
+        self, path: str, batch: int, forms: Tuple[str, ...]
+    ) -> None:
         if self.report is not None:
-            self.report.serial_forms[("fused", batch)] = forms
+            self.report.serial_forms[(path, batch)] = forms
 
     # -- launch paths --------------------------------------------------------
     def _inputs(self, spikes, valid_steps):
@@ -522,7 +790,7 @@ class NetworkExecutable:
             return ()
         spikes, valid_steps = self._inputs(spikes, valid_steps)
         forms = self.serial_forms(spikes.shape[1], serial_form)
-        self._record_forms(spikes.shape[1], forms)
+        self._record_forms("fused", spikes.shape[1], forms)
         states = _init_graph_carry(
             self.plan, self.metas, spikes.shape[1], self.device
         )
@@ -530,6 +798,11 @@ class NetworkExecutable:
             self.plan, self.metas, forms, self._params_for(forms), states,
             spikes, valid_steps,
         )
+        return self._checked(outs)
+
+    def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
+        """Set :attr:`last_check` from the per-population trains and
+        return the per-projection view."""
         # output self-check on the device: every spike entry must be
         # exactly 0.0 or 1.0 (subsumes finiteness — NaN and Inf equal
         # neither), reduced to one bool tensor and never read back here
@@ -537,8 +810,66 @@ class NetworkExecutable:
         for z in outs:
             ok = ok & ((z == 0.0) | (z == 1.0)).all()
         self.last_check = ok
+        # entry i = projection i's target population; fan-in entries
+        # alias the same tensor
         slot = {p: k for k, p in enumerate(self.plan.update_order)}
         return tuple(outs[slot[tgt]] for tgt in self.plan.proj_tgt)
+
+    def run_temporal(
+        self,
+        spikes,                    # (T, B, n_input) 0/1, numpy or tensor
+        *,
+        valid_steps=None,          # (B,) true steps per request
+        serial_form: str = "auto",
+        max_iters: int | None = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """The temporal-parallel path: whole-train, no loop over time.
+
+        Feed-forward populations compute all T timesteps at once — the
+        input train is projected in one contraction and the membrane
+        recurrence resolved by the whole-train scan
+        (:mod:`repro_torch.core.runtime.temporal_runtime`); only the
+        back-edge interval of the topological order (empty for
+        feed-forward graphs) runs the step-serial loop.  Same output
+        layout, masking contract, and bits as :meth:`run_device`;
+        iterative populations additionally record their fixed-point pass
+        count and residual in ``report.temporal[(batch, steps)]``
+        (residual is 0 unless the ``max_iters`` cap — default T+1, which
+        guarantees convergence — cut the loop short).  Each fixed-point
+        pass reads one count back to the host; the trains and
+        :attr:`last_check` stay on the device.
+        """
+        if not self.metas:
+            return ()
+        spikes, valid_steps = self._inputs(spikes, valid_steps)
+        steps, batch = int(spikes.shape[0]), int(spikes.shape[1])
+        forms = self.temporal_forms(batch, steps, serial_form)
+        self._record_forms("temporal", batch, forms)
+        cap = int(max_iters) if max_iters else steps + 1
+        tp = self._temporal_structure()
+        states = (
+            _init_graph_carry(tp.sub_plan, self.metas, batch, self.device)
+            if tp.block else ()
+        )
+        outs, aux = _temporal_network(
+            self.plan, self.metas, forms, tp, cap, self._params_for(forms),
+            states, spikes, valid_steps,
+        )
+        self._record_temporal(batch, steps, cap, aux)
+        return self._checked(outs)
+
+    def _record_temporal(self, batch, steps, cap, aux) -> None:
+        if self.report is None:
+            return
+        tp = self._temporal_structure()
+        order = [p for p in self.plan.update_order if p in tp.modes]
+        self.report.temporal[(batch, steps)] = TemporalReport(
+            split=(len(tp.pre), len(tp.block), len(tp.post)),
+            modes=dict(tp.modes),
+            iterations={p: aux[p][0] for p in order},
+            residual={p: aux[p][1] for p in order},
+            max_iters=cap,
+        )
 
     def run(
         self,
@@ -546,9 +877,11 @@ class NetworkExecutable:
         *,
         valid_steps=None,
         serial_form: str = "auto",
+        temporal: bool = False,
     ) -> List[np.ndarray]:
         """Returns the per-projection spike trains [(T, B, n_l) ...]."""
-        outs = self.run_device(
+        launch = self.run_temporal if temporal else self.run_device
+        outs = launch(
             spikes, valid_steps=valid_steps, serial_form=serial_form
         )
         # single host sync, after the whole network finished on the device

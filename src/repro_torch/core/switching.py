@@ -83,8 +83,9 @@ class CompileReport:
     )
     #: Which serial kernel form the fused executor ran, recorded per launch
     #: shape: ``{(path, batch): (form per layer, ...)}`` with ``path`` in
-    #: ``{"fused", "vmap"}`` and form ``"event"`` | ``"sparse"`` |
-    #: ``"dense"`` for serial layers, ``"-"`` for parallel ones.  The
+    #: ``{"fused", "temporal"}`` and form ``"event"`` | ``"sparse"`` |
+    #: ``"dense"`` for serial layers, ``"-"`` for parallel ones, and
+    #: ``"temporal"`` | ``"temporal_sparse"`` for whole-train ones.  The
     #: three-way form choice
     #: (:meth:`repro_torch.core.cost_model.SerialBatchCostModel.choose_form`)
     #: only ever changes which form runs, never the spike trains — this
@@ -134,6 +135,38 @@ class CompileReport:
     @property
     def compile_seconds(self) -> float:
         return sum(l.compile_seconds for l in self.layers)
+
+
+def temporal_character(layer) -> dict:
+    """Temporal-parallel eligibility features for the switching surface.
+
+    Extends the paper's 4-factor :class:`~repro_torch.core.layer.LayerCharacter`
+    with what the third ("temporal") paradigm needs to prejudge a layer:
+    which reset-resolution mode it would run under
+    (:func:`repro_torch.core.runtime.temporal_runtime.choose_temporal_mode`)
+    and whether that mode is exact — exact layers cost one whole-train
+    pass, iterative layers a convergence loop, which is the feature the
+    classifier (and :meth:`SerialBatchCostModel.choose_form
+    <repro_torch.core.cost_model.SerialBatchCostModel.choose_form>` with a step
+    count) weighs against the per-step scan overhead.  Works for dense
+    layers and CSR :class:`~repro_torch.core.layer.SparseProjection` alike.
+    """
+    from .runtime.temporal_runtime import choose_temporal_mode
+
+    weights = getattr(layer, "values", None)
+    if weights is None:
+        weights = layer.weights
+    nonneg = bool(np.all(np.asarray(weights) >= 0))
+    lif = layer.lif
+    mode = choose_temporal_mode(
+        float(lif.alpha), float(lif.v_th), nonneg_weights=nonneg
+    )
+    return {
+        "character": layer.character(),
+        "mode": mode,
+        "exact": mode in ("alpha0", "count"),
+        "nonneg_weights": nonneg,
+    }
 
 
 class SwitchingCompiler:

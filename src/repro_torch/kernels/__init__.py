@@ -8,6 +8,7 @@ them), ``ref.py`` (the plain PyTorch version) and a source under
 """
 from __future__ import annotations
 
+from .lif_parallel_scan import ops as _scan_ops
 from .lif_update import ops as _lif_ops
 from .sparse_gather import ops as _gather_ops
 from .spike_wdm_matmul import ops as _wdm_ops
@@ -17,6 +18,7 @@ KERNEL_OPS = {
     "lif_update": _lif_ops,
     "spike_wdm_matmul": _wdm_ops,
     "sparse_gather": _gather_ops,
+    "lif_parallel_scan": _scan_ops,
 }
 
 

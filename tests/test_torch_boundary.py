@@ -25,6 +25,7 @@ from repro_torch.core.runtime import (
 )
 from repro_torch.core.parallel_compiler import compile_parallel
 from repro_torch.core.serial_compiler import compile_serial
+from repro_torch.kernels.lif_parallel_scan import lif_parallel_scan
 from repro_torch.kernels.lif_update import lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import spike_wdm_matmul
@@ -41,6 +42,8 @@ def test_import_leaves_jax_and_repro_out():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert 'repro_torch.core.runtime.temporal_runtime' in names\n"
+        "assert 'repro_torch.kernels.lif_parallel_scan.ops' in names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
@@ -107,6 +110,7 @@ def test_entry_points_raise_without_a_device(no_card):
     exe = network_executable(net, report, device="cpu")
     assert exe.device == torch.device("cpu")
     assert len(exe.run(spikes)) == 2
+    assert len(exe.run(spikes, temporal=True)) == 2
 
 
 def _meta(shape, dtype):
@@ -124,6 +128,8 @@ def test_kernel_wrappers_never_fall_back():
         spike_wdm_matmul(_meta((4, 8), i8), _meta((2, 8), i8))
     with pytest.raises(ValueError, match="CUDA device"):
         sparse_gather(_meta((6, 3), f32), _meta((6, 3), i32), _meta((5, 2), f32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        lif_parallel_scan(_meta((5, 3), f32), alpha=0.5)
     # mixed CPU / other-device operands are refused as well
     with pytest.raises(ValueError, match="CUDA device"):
         spike_wdm_matmul(torch.zeros((4, 8), dtype=i8), _meta((2, 8), i8))

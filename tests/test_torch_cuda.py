@@ -17,6 +17,10 @@ from repro_torch.core import SwitchingCompiler, feedforward_network
 from repro_torch.core.layer import LIFParams
 from repro_torch.core.runtime import network_executable
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.lif_parallel_scan import (
+    lif_parallel_scan,
+    lif_parallel_scan_ref,
+)
 from repro_torch.kernels.lif_update import lif_update, lif_update_ref
 from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
 from repro_torch.kernels.spike_wdm_matmul import (
@@ -54,6 +58,20 @@ def ell_operands(r, lanes, s, b, seed, ragged=True):
     x = (rng.random((s, b)) < 0.3).astype(np.float32)
     return val, idx, x
 
+
+def scan_operands(shape, seed, kind="int"):
+    """A (T, F) f32 current train: integers in [-5, 5] (the reference's
+    scan-kernel fixture) or standard normal floats."""
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        return rng.integers(-5, 6, size=shape).astype(np.float32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+#: The gesture path's (T, F) of both populations, the reference's padded
+#: and chunked test shape, a square benchmark shape and the smallest.
+SCAN_SHAPES = [(75, 160), (75, 32), (300, 130), (512, 512), (1, 1)]
+SCAN_ALPHAS = [0.0, 0.5, 0.9, 1.0]
 
 #: The reference's kernel-test shapes, the gesture path's and the
 #: reference benchmark's (M, K, N).
@@ -141,6 +159,71 @@ def test_gather_kernel_on_card(card, r, lanes, s, b):
     out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "randn"])
+@pytest.mark.parametrize("alpha", SCAN_ALPHAS)
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_scan_kernel_on_card(card, shape, alpha, kind):
+    """Bitwise at any alpha: kernel and plain version both walk T in order
+    with separately rounded f32 ops."""
+    c = torch.from_numpy(scan_operands(shape, seed=shape[0], kind=kind)).to(card)
+    before = launch_counts()["lif_parallel_scan"]
+    vk = lif_parallel_scan(c, alpha=alpha)
+    vp = lif_parallel_scan_ref(c, alpha=alpha)
+    torch.cuda.synchronize()
+    assert launch_counts()["lif_parallel_scan"] == before + 1
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_scan_wrapper_edges_and_refusals(card):
+    before = launch_counts()["lif_parallel_scan"]
+    for shape in ((0, 5), (4, 0)):
+        out = lif_parallel_scan(torch.zeros(shape, device=card), alpha=0.5)
+        assert out.shape == shape and out.device.type == "cuda"
+    assert launch_counts()["lif_parallel_scan"] == before
+    f32 = torch.zeros((6, 4), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        lif_parallel_scan(f32.double(), alpha=0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        lif_parallel_scan(f32.T, alpha=0.5)
+    with pytest.raises(ValueError, match=r"\(T, F\)"):
+        lif_parallel_scan(f32[None], alpha=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["serial", "parallel", "ideal"])
+def test_gesture_temporal_on_card_equals_cpu(card, policy):
+    """run_temporal on the card (K4 for the fixed-point passes, K3 for the
+    sparse whole-train projections) equals the port on the CPU bit for
+    bit, with the same passes and residuals."""
+    net = feedforward_network([2048, 20, 4], density=0.0316, delay_range=1,
+                              seed=0)
+    for layer in net.layers:
+        layer.lif = LIFParams(alpha=0.5, v_th=64.0)
+    report = SwitchingCompiler(policy).compile_network(net)
+    rng = np.random.default_rng(0)
+    x = (rng.random((75, 8, 2048)) < 0.2).astype(np.float32)
+    valid = rng.integers(25, 76, 8).astype(np.int32)
+    reset_launch_counts()
+    exe = network_executable(net, report, device=card)
+    got = exe.run(x, valid_steps=valid, temporal=True)
+    assert bool(exe.last_check)
+    counts = launch_counts()
+    rec = report.temporal[(8, 75)]
+    assert counts["lif_parallel_scan"] == sum(rec.iterations.values()) > 0
+    forms = report.serial_forms[("temporal", 8)]
+    assert counts["sparse_gather"] == forms.count("temporal_sparse")
+    assert all(r == 0 for r in rec.residual.values())
+    cpu = network_executable(net, report, device="cpu")
+    want = cpu.run(x, valid_steps=valid, temporal=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert report.temporal[(8, 75)] == rec
+    for a, b in zip(got, cpu.run(x, valid_steps=valid)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

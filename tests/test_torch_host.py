@@ -15,9 +15,11 @@ import repro_torch.core as P
 from repro.core.cost_model import DEFAULT_SERIAL_BATCH_COST as R_COST
 from repro.core.runtime import lower_parallel as r_lower_parallel
 from repro.core.runtime import lower_serial as r_lower_serial
+from repro.core.switching import temporal_character as r_temporal_character
 from repro_torch.core.cost_model import DEFAULT_SERIAL_BATCH_COST as P_COST
 from repro_torch.core.runtime import lower_parallel as p_lower_parallel
 from repro_torch.core.runtime import lower_serial as p_lower_serial
+from repro_torch.core.switching import temporal_character as p_temporal_character
 
 
 def assert_same(a, b, where="value"):
@@ -130,6 +132,50 @@ def test_choose_form_grid():
                         assert (P_COST.dense_fits(s, t, d)
                                 == R_COST.dense_fits(s, t, d))
     assert seen == {"event", "sparse", "dense"}
+
+
+def test_choose_form_fourway_grid():
+    """The four-way choice with a step count (temporal competing), with
+    and without ``allow_temporal``, and the whole-train operand choice."""
+    seen = set()
+    for rows in (0, 60, 1279, 20_000, 400_000):
+        for s in (20, 2048, 20_000):
+            for t in (4, 20, 5_000):
+                for d in (1, 4):
+                    for b in (1, 8, 64):
+                        for steps in (None, 2, 16, 256, 4096, 10**6):
+                            for allow in (True, False):
+                                want = R_COST.choose_form(
+                                    rows, s, t, d, b, steps=steps,
+                                    allow_temporal=allow)
+                                assert P_COST.choose_form(
+                                    rows, s, t, d, b, steps=steps,
+                                    allow_temporal=allow) == want, (
+                                    rows, s, t, d, b, steps, allow)
+                                seen.add(want)
+                        assert P_COST.temporal_operand(rows, s, t, d, b) == (
+                            R_COST.temporal_operand(rows, s, t, d, b))
+    assert seen == {"event", "sparse", "dense", "temporal"}
+
+
+@pytest.mark.parametrize("alpha,v_th", [(0.0, 64.0), (0.5, 64.0), (1.0, 64.0),
+                                        (1.0, 64.5), (0.9, 1.0)])
+@pytest.mark.parametrize("inhib", [0.0, 0.3])
+def test_temporal_character_equal(alpha, v_th, inhib):
+    """The temporal eligibility features, dense and CSR layers alike."""
+    for make in ("random_projection", "random_sparse_projection"):
+        pops = [(m.Population("a", 30), m.Population("b", 12)) for m in (R, P)]
+        rl, pl = (
+            getattr(mod, make)(a, b, 0.3, 3, seed=5, inhibitory_fraction=inhib)
+            for mod, (a, b) in zip((R.layer, P.layer), pops)
+        )
+        rl.lif = R.LIFParams(alpha=alpha, v_th=v_th)
+        pl.lif = P.LIFParams(alpha=alpha, v_th=v_th)
+        rc, pc = r_temporal_character(rl), p_temporal_character(pl)
+        assert_same(pc["character"], rc["character"], make)
+        assert {k: pc[k] for k in ("mode", "exact", "nonneg_weights")} == {
+            k: rc[k] for k in ("mode", "exact", "nonneg_weights")}
+        assert pc["nonneg_weights"] == (inhib == 0.0)
 
 
 GRID = dict(

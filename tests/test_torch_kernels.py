@@ -5,7 +5,8 @@ that version to the JAX ``ops`` function on the reference's own kernel
 fixtures (auto mode, and ``interpret=True`` on a few small shapes, which
 runs the Pallas kernel body).  Integer results are exact; the LIF membrane
 is bit-exact against the NumPy expression and within the reference test's
-``atol=1e-5`` of the JAX function.
+``atol=1e-5`` of the JAX function; the affine scan is bit-exact where every
+partial sum is representable and within ``atol=1e-4`` elsewhere.
 
 The kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 holds each against its plain version there.
@@ -15,17 +16,26 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.lif_parallel_scan import affine_scan_ref
+from repro.kernels.lif_parallel_scan import lif_parallel_scan as jax_scan
 from repro.kernels.lif_update import lif_update as jax_lif_update
 from repro.kernels.sparse_gather import sparse_gather as jax_sparse_gather
 from repro.kernels.spike_wdm_matmul import spike_wdm_matmul as jax_wdm_matmul
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.lif_parallel_scan import lif_parallel_scan
 from repro_torch.kernels.lif_update import lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
     spike_wdm_matmul_ref,
 )
-from test_torch_cuda import WDM_SHAPES, ell_operands, lif_operands, wdm_operands
+from test_torch_cuda import (
+    WDM_SHAPES,
+    ell_operands,
+    lif_operands,
+    scan_operands,
+    wdm_operands,
+)
 
 
 # -- K2: int8 WDM matmul ------------------------------------------------------
@@ -149,12 +159,52 @@ def test_sparse_gather_matches_pallas_body(r, lanes, s, b):
     np.testing.assert_array_equal(out, want)
 
 
+# -- K4: affine membrane scan -----------------------------------------------------
+@pytest.mark.parametrize("alpha,shape", [
+    (0.0, (12, 40)), (1.0, (12, 40)), (0.5, (12, 40)),
+    (1.0, (300, 130)),            # the reference's padded + chunked grid
+])
+def test_scan_matches_jax_and_pallas_body(alpha, shape):
+    """The reference's own scan-kernel cases and currents: the plain
+    version equals the associative-scan reference and the Pallas kernel
+    body (interpret mode) bit for bit; every partial sum is exact here."""
+    rng = np.random.default_rng(int(alpha * 10) + shape[0])
+    c = rng.integers(-5, 6, size=shape).astype(np.float32)
+    got = lif_parallel_scan(torch.from_numpy(c), alpha=alpha).numpy()
+    np.testing.assert_array_equal(got, np.asarray(affine_scan_ref(c, alpha=alpha)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_scan(jnp.asarray(c), alpha=alpha, interpret=True)))
+
+
+def test_scan_near_jax_outside_the_exact_window():
+    """alpha = 0.9 is not dyadic: the reference sums as a tree, the port in
+    sequence, so the two differ by summation-order rounding only."""
+    c = scan_operands((128, 64), seed=128)
+    got = lif_parallel_scan(torch.from_numpy(c), alpha=0.9).numpy()
+    want = np.asarray(affine_scan_ref(c, alpha=0.9))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    # the sequence itself, step by step in f32
+    v, alpha = np.zeros(64, np.float32), np.float32(0.9)
+    for t in range(128):
+        v = alpha * v + c[t]
+        np.testing.assert_array_equal(got[t], v)
+
+
+def test_scan_empty_train():
+    out = lif_parallel_scan(torch.zeros((0, 7)), alpha=0.5)
+    assert out.shape == (0, 7)
+    with pytest.raises(ValueError, match=r"\(T, F\)"):
+        lif_parallel_scan(torch.zeros((2, 3, 4)), alpha=0.5)
+
+
 def test_plain_versions_count_no_launches():
     reset_launch_counts()
     lif_update(*map(torch.from_numpy, lif_operands(8, 4, 0)), alpha=0.9, v_th=1.0)
     a, x = wdm_operands(4, 16, 2, 0)
     port_wdm(a, x)
     sparse_gather(*map(torch.from_numpy, ell_operands(8, 3, 10, 2, 0)))
+    lif_parallel_scan(torch.from_numpy(scan_operands((6, 5), 0)), alpha=0.5)
     assert launch_counts() == {
-        "lif_update": 0, "spike_wdm_matmul": 0, "sparse_gather": 0
+        "lif_update": 0, "spike_wdm_matmul": 0, "sparse_gather": 0,
+        "lif_parallel_scan": 0,
     }
