@@ -10,8 +10,11 @@ for a parallel one.  Handed over as NumPy arrays::
 :func:`executable_from_operands` builds the port's
 :class:`~repro_torch.core.runtime.executor.NetworkExecutable` on exactly
 those operands, with the graph plan taken from the port's own copy of the
-network.  Both packages then run literally the same lowered weights.  This
-module imports nothing of the reference; it only reads arrays.
+network.  Both packages then run literally the same lowered weights.
+
+:func:`lm_params_from_numpy` does the same for a language model's
+parameter tree (``jax.tree.map(np.asarray, params)``).  This module imports
+nothing of the reference; it only reads arrays.
 """
 from __future__ import annotations
 
@@ -100,4 +103,30 @@ def executable_from_operands(
     )
 
 
-__all__ = ["executable_from_operands"]
+def _tensor(a, device) -> torch.Tensor:
+    """One NumPy leaf as a tensor; bfloat16 (NumPy's extension dtype, which
+    torch cannot read) goes over through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def lm_params_from_numpy(tree, *, device=None):
+    """The reference's language-model parameter tree, with NumPy leaves, as
+    the port's: the same ``groups[g][t][name]`` layout, leading stacked
+    ``layers`` axis and dtypes, as tensors on ``device`` (default: the card,
+    or raise)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+__all__ = ["executable_from_operands", "lm_params_from_numpy"]

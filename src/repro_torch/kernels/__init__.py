@@ -12,6 +12,7 @@ from .lif_parallel_scan import ops as _scan_ops
 from .lif_update import ops as _lif_ops
 from .sparse_gather import ops as _gather_ops
 from .spike_wdm_matmul import ops as _wdm_ops
+from .ssd_chunk import ops as _ssd_ops
 
 #: kernel name -> its wrapper module (the name is also its ``csrc`` stem)
 KERNEL_OPS = {
@@ -19,6 +20,7 @@ KERNEL_OPS = {
     "spike_wdm_matmul": _wdm_ops,
     "sparse_gather": _gather_ops,
     "lif_parallel_scan": _scan_ops,
+    "ssd_chunk": _ssd_ops,
 }
 
 

@@ -1,0 +1,217 @@
+"""Parameter shapes and initialization (the port of ``repro.models.init``).
+
+``init_params(cfg, generator, device)`` returns a plain dict tree of
+tensors in the reference's layout: ``groups[g][t][name]`` with a leading
+``layers`` axis, one group per block pattern (``group_layers``).  The init
+rules are the reference's (``_init_leaf``); the random numbers come from a
+``torch.Generator`` and so differ from JAX's.  To run both packages on the
+same weights, hand the JAX tree over as NumPy arrays
+(:func:`repro_torch.convert.lm_params_from_numpy`).
+
+The shape tables of all three block types are copied (they also give
+:func:`param_count`), but only ``mamba2`` blocks are built: the ``attn`` and
+``rglru`` blocks and MoE feed-forwards wait for ROADMAP §1 item 7.  The
+reference's logical sharding specs (``param_specs``) are not ported: the
+port runs on one card.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+
+#: Block types the port can build and run so far.
+PORTED_BLOCKS = ("mamba2",)
+
+
+def group_layers(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(block types of one scan body, repeat count), ...]."""
+    period = len(cfg.block_pattern)
+    full, rem = divmod(cfg.n_layers, period)
+    groups: List[Tuple[Tuple[str, ...], int]] = []
+    if full:
+        groups.append((tuple(cfg.block_pattern), full))
+    if rem:
+        groups.append((tuple(cfg.block_pattern[:rem]), 1))
+    return groups
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# per-block parameter shapes (the reference's tables, without the specs)
+# ---------------------------------------------------------------------------
+
+def _ffn_shapes(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.moe is not None:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff
+        return {
+            "router": (d, e),
+            "w_gate": (e, d, fe),
+            "w_up": (e, d, fe),
+            "w_down": (e, fe, d),
+        }
+    if cfg.act == "swiglu":
+        return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return {"w_up": (d, f), "w_down": (f, d)}
+
+
+def _attn_shapes(cfg: ModelConfig):
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    sh = {
+        "ln1": (d,),
+        "wq": (d, hq * hd),
+        "wk": (d, hkv * hd),
+        "wv": (d, hkv * hd),
+        "wo": (hq * hd, d),
+        "ln2": (d,),
+    }
+    if cfg.qkv_bias:
+        sh["bq"] = (hq * hd,)
+        sh["bk"] = (hkv * hd,)
+        sh["bv"] = (hkv * hd,)
+    if cfg.qk_norm:
+        sh["q_norm"] = (hd,)
+        sh["k_norm"] = (hd,)
+    for k, v in _ffn_shapes(cfg).items():
+        sh[f"ffn.{k}"] = v
+    return sh
+
+
+def _mamba2_shapes(cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    h = d_in // s.head_dim
+    g, n = s.n_groups, s.d_state
+    conv_dim = d_in + 2 * g * n
+    proj_out = 2 * d_in + 2 * g * n + h
+    return {
+        "ln": (d,),
+        "in_proj": (d, proj_out),
+        "conv_w": (conv_dim, s.d_conv),
+        "conv_b": (conv_dim,),
+        "A_log": (h,),
+        "D_skip": (h,),
+        "dt_bias": (h,),
+        "gn": (d_in,),
+        "out_proj": (d_in, d),
+    }
+
+
+def _rglru_shapes(cfg: ModelConfig):
+    d = cfg.d_model
+    r = cfg.rglru.d_rnn or d
+    sh = {
+        "ln1": (d,),
+        "w_x": (d, r),
+        "w_g": (d, r),
+        "conv_w": (r, cfg.rglru.d_conv),
+        "conv_b": (r,),
+        "lam": (r,),
+        "w_a": (r,),
+        "b_a": (r,),
+        "w_i": (r,),
+        "b_i": (r,),
+        "w_out": (r, d),
+        "ln2": (d,),
+    }
+    for k, v in _ffn_shapes(cfg).items():
+        sh[f"ffn.{k}"] = v
+    return sh
+
+
+_BLOCK_SHAPES = {"attn": _attn_shapes, "mamba2": _mamba2_shapes, "rglru": _rglru_shapes}
+
+
+def block_shapes(cfg: ModelConfig, btype: str) -> dict:
+    """{leaf name: shape} of one block of type ``btype`` (no layers axis)."""
+    return _BLOCK_SHAPES[btype](cfg)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Total parameters (embeddings included), from the shape tables."""
+    n = cfg.vocab * cfg.d_model + cfg.d_model           # tok_embed, final_norm
+    if not cfg.tie_embeddings:
+        n += cfg.d_model * cfg.vocab                      # lm_head
+    for types, repeat in group_layers(cfg):
+        for bt in types:
+            n += repeat * sum(math.prod(s) for s in block_shapes(cfg, bt).values())
+    return n
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_leaf(shape, name: str, cfg: ModelConfig, generator: torch.Generator):
+    """One mamba2 leaf of ``shape`` (leading layers axis included) by the
+    reference's rules (``repro.models.init._init_leaf``; the rules of the
+    other blocks' leaves come with those blocks)."""
+    dt = torch_dtype(cfg)
+    if name in ("ln", "gn", "D_skip"):
+        return torch.ones(shape, dtype=dt)
+    if name == "A_log":
+        a = torch.log(torch.linspace(1.0, 16.0, shape[-1]))
+        return a.expand(shape).to(dt).clone()
+    if name in ("dt_bias", "conv_b"):
+        return torch.zeros(shape, dtype=dt)
+    scale = 0.02
+    if name == "out_proj":
+        scale = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+    return (torch.randn(shape, generator=generator) * scale).to(dt)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Random parameters of ``cfg`` by the reference's init rules.
+
+    Drawn on the CPU from ``generator`` (default: seed 0), so one seed gives
+    the same weights whatever ``device`` they are put on; ``device=None`` is
+    the card (or raise).
+    """
+    dev = resolve_device(device)
+    for types, _ in group_layers(cfg):
+        for bt in types:
+            if bt not in PORTED_BLOCKS:
+                raise NotImplementedError(
+                    f"{cfg.name}: {bt!r} blocks are not ported yet "
+                    f"(ROADMAP.md §1 item 7)"
+                )
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    dt = torch_dtype(cfg)
+    params = {
+        "tok_embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
+                      * 0.02).to(dt),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen)
+                             * 0.02).to(dt)
+    groups = []
+    for types, repeat in group_layers(cfg):
+        groups.append([
+            {name: _init_leaf((repeat,) + shape, name, cfg, gen)
+             for name, shape in block_shapes(cfg, bt).items()}
+            for bt in types
+        ])
+    params["groups"] = groups
+    return tree_to(params, dev)
+
+
+def tree_to(tree, device):
+    """``tree`` with every tensor moved to ``device`` (or cast: anything
+    ``Tensor.to`` takes)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)

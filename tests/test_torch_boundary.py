@@ -29,6 +29,10 @@ from repro_torch.kernels.lif_parallel_scan import lif_parallel_scan
 from repro_torch.kernels.lif_update import lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import spike_wdm_matmul
+from repro_torch.kernels.ssd_chunk import ssd_chunk
+from repro_torch.launch import serve
+from repro_torch.models import init as minit, model as lm
+from repro_torch.configs import smoke_config
 
 PKG = Path(repro_torch.__file__).resolve().parent
 
@@ -44,6 +48,11 @@ def test_import_leaves_jax_and_repro_out():
         "    importlib.import_module(n)\n"
         "assert 'repro_torch.core.runtime.temporal_runtime' in names\n"
         "assert 'repro_torch.kernels.lif_parallel_scan.ops' in names\n"
+        "for m in ('kernels.ssd_chunk.ops', 'kernels.ssd_chunk.ref',\n"
+        "          'models.config', 'models.init', 'models.blocks',\n"
+        "          'models.model', 'configs.registry', 'configs.mamba2_130m',\n"
+        "          'launch.serve'):\n"
+        "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
@@ -106,6 +115,13 @@ def test_entry_points_raise_without_a_device(no_card):
         lower_parallel(compile_parallel(net.layers[0]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_state(1, 4, 2)
+    cfg = smoke_config("mamba2-130m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-130m", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        minit.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_caches(cfg, 1, 8)
     # asked for, the CPU runs
     exe = network_executable(net, report, device="cpu")
     assert exe.device == torch.device("cpu")
@@ -130,6 +146,9 @@ def test_kernel_wrappers_never_fall_back():
         sparse_gather(_meta((6, 3), f32), _meta((6, 3), i32), _meta((5, 2), f32))
     with pytest.raises(ValueError, match="CUDA device"):
         lif_parallel_scan(_meta((5, 3), f32), alpha=0.5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_chunk(_meta((8, 2, 4), f32), _meta((8, 2, 3), f32),
+                  _meta((8, 2, 3), f32), _meta((8, 2), f32))
     # mixed CPU / other-device operands are refused as well
     with pytest.raises(ValueError, match="CUDA device"):
         spike_wdm_matmul(torch.zeros((4, 8), dtype=i8), _meta((2, 8), i8))

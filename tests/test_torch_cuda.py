@@ -27,6 +27,7 @@ from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
     spike_wdm_matmul_ref,
 )
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
 
 
 def wdm_operands(m, k, n, seed, p=0.3):
@@ -251,3 +252,102 @@ def test_gesture_on_card_equals_cpu(card, policy):
     cpu = network_executable(net, report, device="cpu").run(x, valid_steps=valid)
     for a, b in zip(got, cpu):
         np.testing.assert_array_equal(a, b)
+
+
+#: (G, Q, H, P, N): the reference's four TestSSDChunk shapes (G = 1), the
+#: batched path shape of a mamba2-130m prefill at batch 4 x 1024 tokens,
+#: and ragged edges (Q not a multiple of 64, P and N above one tile).
+SSD_SHAPES = [(1, 256, 24, 64, 128), (1, 64, 3, 16, 32), (1, 16, 1, 8, 8),
+              (1, 128, 5, 32, 64), (16, 256, 24, 64, 128), (3, 100, 2, 80, 130)]
+
+
+def ssd_operands(g, q, h, p, n, seed, decay="test"):
+    """TestSSDChunk's draws; ``decay="mamba2"`` gives a mamba2 layer's log
+    decays (dt ~ 0.69 times A in [-16, -1]) instead of -|N(0, 0.1)|."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(g, q, h, p)).astype(np.float32)
+    b = rng.normal(size=(g, q, h, n)).astype(np.float32)
+    c = rng.normal(size=(g, q, h, n)).astype(np.float32)
+    if decay == "test":
+        la = -np.abs(rng.normal(size=(g, q, h)) * 0.1)
+    else:
+        la = -0.69 * np.linspace(1.0, 16.0, h) * rng.uniform(0.8, 1.2, (g, q, h))
+    return x, b, c, la.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["test", "mamba2"])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_on_card(card, shape, decay):
+    """K5 against its plain version on the card at the reference's
+    tolerance, rtol = atol = 1e-4 (the plain version in full f32)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ops = [torch.from_numpy(a).to(card) for a in ssd_operands(*shape, seed=7, decay=decay)]
+    if shape[0] == 1:                       # the reference's own layout
+        ops = [a[0] for a in ops]
+    before = launch_counts()["ssd_chunk"]
+    y, s = ssd_chunk(*ops)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == before + 1
+    yr, sr = ssd_chunk_ref(*ops)
+    assert y.shape == yr.shape and s.shape == sr.shape
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_edges_and_refusals(card):
+    before = launch_counts()["ssd_chunk"]
+    for g, q, h, p, n in ((0, 4, 2, 3, 5), (2, 0, 2, 3, 5), (2, 4, 2, 3, 0)):
+        y, s = ssd_chunk(torch.ones((g, q, h, p), device=card),
+                         torch.ones((g, q, h, n), device=card),
+                         torch.ones((g, q, h, n), device=card),
+                         torch.ones((g, q, h), device=card))
+        assert y.shape == (g, q, h, p) and s.shape == (g, h, n, p)
+        assert not y.any() and not s.any()
+    assert launch_counts()["ssd_chunk"] == before
+    x, b, c, la = (torch.from_numpy(a[0]).to(card)
+                   for a in ssd_operands(1, 16, 2, 8, 8, seed=1))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_chunk(x, b.cpu(), c, la)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x.double(), b, c, la)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x, b.bfloat16(), c, la)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x, b.transpose(0, 1).contiguous().transpose(0, 1), c, la)
+    with pytest.raises(ValueError, match="b and c"):
+        ssd_chunk(x, b[..., :4].contiguous(), c, la)
+    assert launch_counts()["ssd_chunk"] == before
+
+
+@pytest.mark.cuda
+def test_mamba2_smoke_on_card_equals_cpu(card):
+    """The smoke mamba2 model in f32 on the card (K5 once per layer in the
+    prefill, none in decode) against the port on the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init as minit, model as lm
+
+    cfg = smoke_config("mamba2-130m")
+    cpu = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = minit.tree_to(cpu, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    reset_launch_counts()
+    got, gc = lm.prefill(gpu, cfg, {"tokens": toks}, 48)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == cfg.n_layers
+    want, wc = lm.prefill(cpu, cfg, {"tokens": toks}, 48)
+    for step in range(3):
+        # rtol 1e-4 and an atol of 1e-4 of each tensor's scale: the CPU's
+        # cumsum accumulates in double, the card's in f32, and the SSD
+        # state (values near 1e-4) inherits that rounding
+        for a, b in [(got, want)] + [(gc[0][0][k], wc[0][0][k]) for k in ("conv", "ssd")]:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
+        tok = want[:, -1].argmax(-1)[:, None]
+        assert torch.equal(got[:, -1].argmax(-1).cpu(), tok[:, 0])
+        reset_launch_counts()
+        got, gc = lm.decode_step(gpu, cfg, tok.to(card), 40 + step, gc, 48)
+        assert launch_counts()["ssd_chunk"] == 0
+        want, wc = lm.decode_step(cpu, cfg, tok, 40 + step, wc, 48)

@@ -29,6 +29,7 @@ from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
     spike_wdm_matmul_ref,
 )
+from repro_torch.kernels.ssd_chunk import ssd_chunk
 from test_torch_cuda import (
     WDM_SHAPES,
     ell_operands,
@@ -204,7 +205,9 @@ def test_plain_versions_count_no_launches():
     port_wdm(a, x)
     sparse_gather(*map(torch.from_numpy, ell_operands(8, 3, 10, 2, 0)))
     lif_parallel_scan(torch.from_numpy(scan_operands((6, 5), 0)), alpha=0.5)
+    ssd_chunk(torch.zeros((4, 2, 3)), torch.zeros((4, 2, 5)),
+              torch.zeros((4, 2, 5)), torch.zeros((4, 2)))
     assert launch_counts() == {
         "lif_update": 0, "spike_wdm_matmul": 0, "sparse_gather": 0,
-        "lif_parallel_scan": 0,
+        "lif_parallel_scan": 0, "ssd_chunk": 0,
     }
