@@ -11,12 +11,14 @@ none of which is caught and swallowed:
    (one ``nvcc`` per source, all started together), print the card's name
    and power limit, and hold each kernel against its plain PyTorch version
    on the card: the LIF update bitwise on ``v`` and ``z`` with
-   ``alpha`` in {0.5, 0.9}, the int8 WDM matmul and the ELL gather exactly,
+   ``alpha`` in {0.5, 0.9}, the int8 WDM matmul and the ELL gather exactly
+   (the gather also with its spikes as strided views and at 600 columns),
    the affine membrane scan bitwise at ``alpha`` in {0, 0.5, 0.9, 1} on
    integer and normal currents, the SSD intra-chunk block within
-   ``rtol = atol = 1e-4`` (the reference's tolerance), at the paths' shapes
-   and at the shapes of the reference package's kernel tests and kernel
-   benchmark.
+   ``rtol = atol = 1e-4`` (the reference's tolerance; B and C per head and
+   per group of heads), at the paths' shapes and at the shapes of the
+   reference package's kernel tests and kernel benchmark.  ptxas's
+   registers, shared memory and spills are printed for K3 and K5.
 2. **Compile.**  Train AdaBoost on a reduced paradigm-dataset grid that
    holds the gesture regime, and compile the paper's gesture network
    (2048-20-4, density 0.0316, §IV-C) under ``classifier``, ``serial``
@@ -71,9 +73,11 @@ import torch
 SRC = Path(__file__).resolve().parent / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): device
-# memory bytes/s, int8 tensor-core ops/s, f32 (non-tensor-core) flop/s.
+# memory bytes/s, int8 and TF32 tensor-core ops/s, f32 (non-tensor-core)
+# flop/s.
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+TF32_OPS_S = 495e12
 F32_OPS_S = 67e12
 
 N_INPUT = 2048
@@ -174,16 +178,23 @@ def wdm_inputs(m, k, n, seed, p=0.3):
     return a.cuda(), x.cuda()
 
 
-def ell_inputs(r, lanes, s, b, seed):
+def ell_inputs(r, lanes, s, b, seed, layout="contiguous"):
     """Ragged ELL rows: each row keeps a random number of lanes, the rest
-    padding (weight 0, index 0), with int8-magnitude integer weights."""
+    padding (weight 0, index 0), with int8-magnitude integer weights.  The
+    (S, B) spikes are contiguous, the transposed view of a (B, S) matrix
+    (the fused step's ``x_t.t()``) or a column slice of a wider one."""
     rng = np.random.default_rng(seed)
     val = rng.integers(-127, 128, (r, lanes)).astype(np.float32)
     idx = rng.integers(0, s, (r, lanes)).astype(np.int32)
     keep = np.arange(lanes)[None, :] < rng.integers(0, lanes + 1, (r, 1))
     val, idx = np.where(keep, val, 0), np.where(keep, idx, 0).astype(np.int32)
     x = (rng.random((s, b)) < 0.2).astype(np.float32)
-    return [torch.tensor(a).cuda() for a in (val, idx, x)]
+    val, idx, x = (torch.tensor(a).cuda() for a in (val, idx, x))
+    if layout == "transposed":
+        x = x.t().contiguous().t()
+    elif layout == "sliced":
+        x = torch.cat([torch.zeros((s, 2), device="cuda"), x], 1)[:, 2:]
+    return [val, idx, x]
 
 
 def scan_inputs(shape, seed, kind):
@@ -194,13 +205,15 @@ def scan_inputs(shape, seed, kind):
 
 
 def ssd_inputs(shape, seed, decay="test"):
-    """(G, Q, H, P, N) SSD operands as the reference's kernel test draws
-    them (normal x, b, c; la = -|N(0, 0.1)|), or with a mamba2 layer's log
-    decays (dt ~ 0.69 times A in [-16, -1]).  G = 1 gives the reference's
+    """(G, Q, H, P, N[, Hg]) SSD operands as the reference's kernel test
+    draws them (normal x, b, c; la = -|N(0, 0.1)|), or with a mamba2
+    layer's log decays (dt ~ 0.69 times A in [-16, -1]); b and c per head,
+    or per group of heads when Hg is given.  G = 1 gives the reference's
     own single-chunk layout."""
-    g, q, h, p, n = shape
+    g, q, h, p, n = shape[:5]
+    hg = shape[5] if len(shape) > 5 else h
     rng = np.random.default_rng(seed)
-    x, b, c = (rng.normal(size=(g, q, h, k)) for k in (p, n, n))
+    x, b, c = (rng.normal(size=(g, q, hh, k)) for hh, k in ((h, p), (hg, n), (hg, n)))
     if decay == "test":
         la = -np.abs(rng.normal(size=(g, q, h)) * 0.1)
     else:
@@ -229,6 +242,7 @@ def check_kernels(shapes) -> dict:
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
 
     err = {name: 0.0 for name in REPLACES}
+    err["ssd_chunk/tol"] = 0.0      # max |diff| / (atol + rtol |ref|): the margin
     for seed, shape in enumerate(shapes["lif_update"]):
         for alpha, v_th in ((0.5, 64.0), (0.9, 1.0)):
             i, v, z = lif_inputs(shape, seed)
@@ -259,11 +273,11 @@ def check_kernels(shapes) -> dict:
         torch.zeros((4, 0), dtype=torch.int8, device="cuda"),
     )
     require(empty.shape == (4, 32) and int(empty.abs().sum()) == 0, "K == 0")
-    for seed, (r, lanes, s, b) in enumerate(shapes["sparse_gather"]):
-        val, idx, x = ell_inputs(r, lanes, s, b, seed)
+    for seed, shape in enumerate(shapes["sparse_gather"]):
+        val, idx, x = ell_inputs(*shape[:4], seed, *shape[4:])
         out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
         torch.cuda.synchronize()
-        require(torch.equal(out, ref), f"sparse_gather differs at {(r, lanes, s, b)}")
+        require(torch.equal(out, ref), f"sparse_gather differs at {shape}")
         err["sparse_gather"] = max(err["sparse_gather"], max_abs_diff(out, ref))
     for seed, shape in enumerate(shapes["lif_parallel_scan"]):
         for alpha in SCAN_ALPHAS:
@@ -291,6 +305,9 @@ def check_kernels(shapes) -> dict:
                         f"ssd_chunk differs at {shape}, {decay} decays: max "
                         f"|diff| {max_abs_diff(out, ref)}")
                 err["ssd_chunk"] = max(err["ssd_chunk"], max_abs_diff(out, ref))
+                err["ssd_chunk/tol"] = max(err["ssd_chunk/tol"], float(
+                    ((out - ref).abs() / (SSD_TOL["atol"] + SSD_TOL["rtol"] * ref.abs()))
+                    .max()) if out.numel() else 0.0)
     return err
 
 
@@ -795,7 +812,7 @@ def serve_mamba2_bf16(card, host32, steps32, greedy32):
 
 
 # -- kernel timings --------------------------------------------------------------
-def kernel_rows(path, err, counts, card, temporal_gather):
+def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps):
     """Times at the main path's largest shape of each kernel (the JSON
     rows), and at the reference benchmark's larger shapes and K3's
     temporal-path shape (printed only).
@@ -851,7 +868,9 @@ def kernel_rows(path, err, counts, card, temporal_gather):
     def gather_row(val, idx, x):
         r, lanes = val.shape
         s, bsz = x.shape
-        # library yardstick: the same ELL as one CSR sparse x dense product
+        # library yardstick: the same ELL as one CSR sparse x dense product,
+        # on the spikes made contiguous (its best case)
+        xc = x.contiguous()
         nz = val != 0
         rows_i = torch.arange(r, device="cuda")[:, None].expand(r, lanes)[nz]
         csr = torch.sparse_coo_tensor(
@@ -863,13 +882,35 @@ def kernel_rows(path, err, counts, card, temporal_gather):
         # output written once; the flops this data needs: one multiply-add
         # a live lane
         rows_read = int(torch.unique(idx).numel())
-        return timed(
+        t = timed(
             lambda: sparse_gather(val, idx, x),
             lambda: sparse_gather_ref(val, idx, x),
-            lambda: torch.sparse.mm(csr, x),
+            lambda: torch.sparse.mm(csr, xc),
             8 * r * lanes + 4 * rows_read * bsz + 4 * r * bsz, 2 * nnz * bsz,
             F32_OPS_S,
         )
+        if not x.is_contiguous():
+            print(f"kernel timing [{card}]: sparse_gather at R={r} L={lanes} S={s} "
+                  f"B={bsz}, x strides {x.stride()}: device {t['ms']:.5f} ms; "
+                  f"on x made contiguous {device_ms(lambda: sparse_gather(val, idx, xc)):.5f}"
+                  f" ms; torch.sparse.mm on the strided x "
+                  f"{device_ms(lambda: torch.sparse.mm(csr, x)):.5f} ms")
+        return t
+
+    def temporal_layouts(val, idx, s, steps):
+        """run_temporal's call: (T, B, S) spikes as (S, T.B) columns, copied
+        source-major then gathered, against the strided view gathered."""
+        xtb = (torch.rand((steps, MICRO_BATCH, s), device="cuda") < 0.2).float()
+        view = xtb.permute(2, 0, 1).reshape(s, steps * MICRO_BATCH)
+        require(torch.equal(sparse_gather(val, idx, view),
+                            sparse_gather(val, idx, view.contiguous())),
+                "sparse_gather: the temporal view differs from its copy")
+        copied = device_ms(lambda: sparse_gather(val, idx, view.contiguous()))
+        strided = device_ms(lambda: sparse_gather(val, idx, view))
+        print(f"kernel timing [{card}]: sparse_gather at the temporal shape "
+              f"R={val.shape[0]} L={val.shape[1]} B={steps * MICRO_BATCH}: copy "
+              f"to (S, T.B) then gather {copied:.5f} ms; gather from the strided "
+              f"view {strided:.5f} ms")
 
     def scan_row(shape, seed):
         # one f32 read and one f32 write an element, a multiply and an add;
@@ -891,23 +932,32 @@ def kernel_rows(path, err, counts, card, temporal_gather):
         return t
 
     def ssd_row(shape, seed):
-        # each operand read once, y and the state written once; the products
-        # this function needs: the score and Y sums over j <= i only (the
-        # causal half is zero by construction), and the state's
-        g, q, h, p, n = shape
+        # each operand read once (B and C once per group), y and the state
+        # written once; the products this function needs: the scores C.B^T
+        # once a group (they carry no decay, so the heads of a group share
+        # them) and over j <= i only (the causal half is zero by
+        # construction), the decayed scores times X a head, and the state's;
+        # each runs as three TF32 products (3xTF32)
+        g, q, h, p, n, hg = shape
         ops = ssd_inputs(shape, seed)
         pairs = q * (q + 1) // 2
+        flops = g * hg * pairs * 2 * n + g * h * (pairs * 2 * p + 2 * q * n * p)
+        per_head = g * h * (pairs * (2 * n + 2 * p) + 2 * q * n * p)
+        n_bytes = 4 * (2 * g * q * h * p + 2 * g * q * hg * n + g * q * h + g * h * n * p)
         t = timed(
             lambda: ssd_chunk(*ops), lambda: ssd_chunk_ref(*ops), None,
-            4 * (g * q * h * (p + 2 * n + 1) + g * q * h * p + g * h * n * p),
-            g * h * (pairs * (2 * n + 2 * p) + 2 * q * n * p), F32_OPS_S,
-            plain_iters=5,
+            n_bytes, 3 * flops, TF32_OPS_S, plain_iters=5,
         )
-        full = g * h * (2 * q * q * n + 2 * q * q * p + 2 * q * n * p)
-        print(f"kernel timing [{card}]: ssd_chunk at {shape}: bound without the "
-              f"causal skip {full / F32_OPS_S * 1e3:.5f} ms ({full / 1e9:.2f} "
-              f"GFLOP against {g * h * (pairs * (2 * n + 2 * p) + 2 * q * n * p) / 1e9:.2f}); "
-              f"kernel at {full / t['ms'] / 1e9:.1f} GFLOP/s of the full count")
+        print(f"kernel timing [{card}]: ssd_chunk at {shape}: bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} (3xTF32: "
+              f"{3 * flops / 1e9:.2f} GFLOP at 495 TFLOP/s "
+              f"{3 * flops / TF32_OPS_S * 1e3:.5f} ms, or "
+              f"{3 * per_head / TF32_OPS_S * 1e3:.5f} ms for {3 * per_head / 1e9:.2f} "
+              f"GFLOP with the scores once a head; {n_bytes / 1e6:.1f} MB at 3.35 TB/s "
+              f"{n_bytes / HBM_BYTES_S * 1e3:.5f} ms); f32 CUDA-core bound with "
+              f"the scores once a head {per_head / F32_OPS_S * 1e3:.5f} ms "
+              f"({per_head / 1e9:.2f} GFLOP); kernel at "
+              f"{3 * flops / t['ms'] / 1e9:.1f} TFLOP/s of TF32 products")
         return t
 
     def fmt(x):
@@ -926,7 +976,7 @@ def kernel_rows(path, err, counts, card, temporal_gather):
         "spike_wdm_matmul": [(512, 2048, 128, 1)],
         "sparse_gather": [tuple(ell_inputs(4096, 32, 2048, 8, 1)), temporal_gather],
         "lif_parallel_scan": [((512, 512), 1)],
-        "ssd_chunk": [((1, 256, 24, 64, 128), 1)],
+        "ssd_chunk": [((1, 256, 24, 64, 128, 1), 1), ((16, 256, 24, 64, 128, 24), 1)],
     }
     fns = {"lif_update": lif_row, "spike_wdm_matmul": wdm_row,
            "sparse_gather": gather_row, "lif_parallel_scan": scan_row,
@@ -945,13 +995,16 @@ def kernel_rows(path, err, counts, card, temporal_gather):
         })
         for args in extra[name]:
             show(name, path_desc(name, args), fn(*args))
+    val, idx, x = path["sparse_gather"]
+    temporal_layouts(val, idx, x.shape[0], temporal_steps)
     return rows
 
 
 def path_desc(name, args):
     if name == "sparse_gather":
         val, _, x = args
-        return f"R={val.shape[0]} L={val.shape[1]} S={x.shape[0]} B={x.shape[1]}"
+        return (f"R={val.shape[0]} L={val.shape[1]} S={x.shape[0]} B={x.shape[1]}"
+                + ("" if x.is_contiguous() else f" (x strides {x.stride()})"))
     if name in ("lif_update", "lif_parallel_scan", "ssd_chunk"):
         return str(args[0])
     return str(tuple(args[:3]))
@@ -994,24 +1047,40 @@ def main() -> int:
     build_kernels()
     print(f"build: {len(REPLACES)} kernels built or found in "
           f"{time.perf_counter() - t0:.1f} s")
+    from repro_torch.kernels import _build
+    for name in ("sparse_gather", "ssd_chunk"):
+        report = _build.ptxas_report(name)
+        require(bool(report), f"no ptxas report for {name}")
+        for kernel, usage in report:
+            print(f"ptxas: {name}: {kernel}: {usage}")
     fixed = {
         "lif_update": [(256, 128), (300, 36), (1, 1), (1000, 3), (1024, 128)],
         "spike_wdm_matmul": [(4, 16, 1), (128, 128, 128), (128, 512, 128),
                              (300, 700, 36), (1, 1, 1), (257, 1025, 129),
                              (512, 2048, 128)],
-        "sparse_gather": [(4096, 32, 2048, 8), (3000, 17, 500, 3), (1, 1, 1, 1)],
+        # (R, L, S, B[, layout]): the reference's shapes, then both designs
+        # (B <= 32, B > 32) on ragged rows with strided spikes
+        "sparse_gather": [(4096, 32, 2048, 8), (3000, 17, 500, 3), (1, 1, 1, 1),
+                          (40, 78, 2048, 8, "transposed"), (40, 1, 2048, 32, "sliced"),
+                          (40, 78, 2048, 33, "transposed"), (40, 78, 2048, 600),
+                          (40, 78, 2048, 600, "transposed"), (1000, 5, 300, 3, "sliced")],
         "lif_parallel_scan": [(75, 160), (75, 32), (300, 130), (512, 512), (1, 1)],
-        # (G, Q, H, P, N): tests/test_kernels.py::TestSSDChunk's shapes, and
-        # mamba2-130m's prefill path (batch 4 x 4 chunks), ragged edges
+        # (G, Q, H, P, N[, Hg]): tests/test_kernels.py::TestSSDChunk's
+        # shapes, mamba2-130m's prefill path (batch 4 x 4 chunks) per head
+        # and with its one group of B and C, ragged edges per head and per
+        # group
         "ssd_chunk": [(1, 256, 24, 64, 128), (1, 64, 3, 16, 32), (1, 16, 1, 8, 8),
                       (1, 128, 5, 32, 64), (16, 256, 24, 64, 128),
-                      (3, 100, 2, 80, 130)],
+                      (3, 100, 2, 80, 130), (16, 256, 24, 64, 128, 1),
+                      (1, 256, 24, 64, 128, 1), (3, 100, 6, 80, 130, 2),
+                      (2, 64, 4, 16, 32, 2)],
     }
     err = check_kernels(fixed)
     print("build: kernels equal their plain versions at the reference's test "
           "and benchmark shapes (the scan bitwise at alpha in "
           f"{list(SCAN_ALPHAS)}; the SSD block within rtol = atol = 1e-4, "
-          f"max |diff| {err['ssd_chunk']:.3e})")
+          f"max |diff| {err['ssd_chunk']:.3e}, at most {err['ssd_chunk/tol']:.3f} of "
+          "the tolerance)")
 
     # 2. compile
     net = gesture_net()
@@ -1026,7 +1095,8 @@ def main() -> int:
           f"{[(tuple(v.shape), s) for v, _, s in ell_s]}, scan {scan_s}")
     path_err = check_kernels({
         "lif_update": lif_s, "spike_wdm_matmul": wdm_s,
-        "sparse_gather": [(v.shape[0], v.shape[1], s, MICRO_BATCH)
+        # the fused step hands its (B, S) spikes over as the view x_t.t()
+        "sparse_gather": [(v.shape[0], v.shape[1], s, MICRO_BATCH, "transposed")
                           for v, _, s in ell_s],
         "lif_parallel_scan": scan_s,
         "ssd_chunk": [],
@@ -1035,7 +1105,11 @@ def main() -> int:
     t_cols = max(x.shape[0] for x, _ in batches) * MICRO_BATCH
     for val, idx, s in ell_s:           # the compiled ELL operands themselves
         for cols in (MICRO_BATCH, t_cols):
-            x = (torch.rand((s, cols), device="cuda") < 0.2).float()
+            # the fused step's view of its (B, S) spikes; the temporal
+            # path's source-major copy
+            x = ((torch.rand((cols, s), device="cuda") < 0.2).float().t()
+                 if cols == MICRO_BATCH else
+                 (torch.rand((s, cols), device="cuda") < 0.2).float())
             out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
             require(torch.equal(out, ref),
                     "sparse_gather differs on the compiled operands")
@@ -1079,9 +1153,10 @@ def main() -> int:
     path = {
         "lif_update": ((MICRO_BATCH, max(n for _, n in lif_s)), 0),
         "spike_wdm_matmul": (*max(wdm_s, key=lambda s: s[0] * s[1]), 0),
+        # the fused step's spikes: the view x_t.t() of a (B, S) matrix
         "sparse_gather": (
             ga_val, ga_idx,
-            (torch.rand((ga_s, MICRO_BATCH), device="cuda") < 0.2).float(),
+            (torch.rand((MICRO_BATCH, ga_s), device="cuda") < 0.2).float().t(),
         ),
         "lif_parallel_scan": (max(scan_s), 0),
     }
@@ -1093,8 +1168,9 @@ def main() -> int:
     ssm = cfg32.ssm
     path["ssd_chunk"] = ((LM_BATCH * -(-LM_PROMPT // ssm.chunk), ssm.chunk,
                           ssm.expand * cfg32.d_model // ssm.head_dim,
-                          ssm.head_dim, ssm.d_state), 0)
-    rows = kernel_rows(path, err, launches, card, temporal_gather)
+                          ssm.head_dim, ssm.d_state, ssm.n_groups), 0)
+    rows = kernel_rows(path, err, launches, card, temporal_gather,
+                       max(x.shape[0] for x, _ in batches))
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -285,14 +285,15 @@ def serial_project_sparse(
 
     Each ELL row gathers and accumulates one ``(delay, target)`` pair's
     contribution for the whole batch (:mod:`repro_torch.kernels.sparse_gather`
-    reads ``x`` source-major, so the step's ``(B, S)`` spikes are copied
-    to ``(S, B)`` once); the ``(d_slots * T, B)`` result viewed as
+    takes ``x`` source-major through its strides, so the step's ``(B, S)``
+    spikes go in as the view ``x_t.t()``, not copied); the
+    ``(d_slots * T, B)`` result viewed as
     ``(d_slots, B, T)`` and rolled by ``t`` lands delay-``d`` sums in ring
     slot ``(t + d) % d_slots``, exactly where the event form's segment ids
     point.
     """
     d_slots = delay_range + 1
-    out = sparse_gather(ell_val, ell_idx, x_t.t().contiguous())   # (R, B)
+    out = sparse_gather(ell_val, ell_idx, x_t.t())                # (R, B)
     upd = out.view(d_slots, n_target, -1).permute(0, 2, 1)        # (d, B, T)
     return ring, _roll_in(ring, upd, t)
 

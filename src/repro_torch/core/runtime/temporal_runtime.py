@@ -119,10 +119,14 @@ def temporal_project_sparse(
     n_target: int,
 ) -> torch.Tensor:
     """Whole-train ELL projection: ONE gather-accumulate launch over all
-    T·B spike columns, then the same shift-and-sum as the dense form."""
+    T·B spike columns, then the same shift-and-sum as the dense form.
+
+    The (S, T·B) columns go to the kernel as a strided view of ``x``: on
+    the H100 the gather from the view took less time than a source-major
+    copy followed by the gather (``chip_smoke.py`` times both)."""
     steps, batch, n_src = x.shape
     d_slots = delay_range + 1
-    xs = x.permute(2, 0, 1).reshape(n_src, steps * batch).contiguous()
+    xs = x.permute(2, 0, 1).reshape(n_src, steps * batch)
     gat = sparse_gather(ell_val, ell_idx, xs)            # (d_slots*N, T*B)
     y = gat.view(d_slots, n_target, steps, batch).permute(0, 2, 3, 1)
     return _delayed_sum(y, steps)                      # y: (d_slots, T, B, N)

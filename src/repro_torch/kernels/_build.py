@@ -27,9 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: ``--fmad=false`` keeps every ``a * b + c`` a separately rounded multiply
 #: and add: the LIF update must round exactly like the reference's
 #: elementwise f32 expression (an FMA can flip a spike at threshold).
+#: ``-Xptxas=-v`` changes no code: ptxas reports each kernel's registers,
+#: shared memory and spills, kept beside the library (:func:`ptxas_report`).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -74,7 +76,26 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    _log_path(out).write_text(log)
     os.replace(tmp, out)     # atomic: a concurrent build sees all or nothing
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str) -> list:
+    """``(kernel, usage)`` for each kernel ptxas compiled from
+    ``csrc/<name>.cu``: its mangled name, and its registers, shared memory
+    and spills as ptxas printed them."""
+    path = _log_path(library_path(name))
+    rows = []
+    for line in (path.read_text().splitlines() if path.exists() else ()):
+        if "Compiling entry function" in line:
+            rows.append((line.split("'")[1], []))
+        elif rows and ("Used" in line or "spill" in line):
+            rows[-1][1].append(line.split(":", 1)[-1].strip())
+    return [(kernel, "; ".join(usage)) for kernel, usage in rows]
 
 
 def build_all(names) -> None:

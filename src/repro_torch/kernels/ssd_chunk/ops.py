@@ -11,26 +11,31 @@ from .ref import ssd_chunk_ref
 #: Launches of the CUDA kernel (never incremented by the plain version).
 LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-_fn = None
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
+             + [ctypes.c_int, ctypes.c_void_p])
+_fn = _scratch_floats = None
 
 
 def _shapes(x, b, c, la):
-    """(G, Q, H, P, N) of a single-chunk or batched call, or raise."""
+    """(G, Q, H, Hg, P, N) of a single-chunk or batched call, or raise."""
     if x.ndim not in (3, 4):
         raise ValueError(f"ssd_chunk: x must be (Q, H, P) or (G, Q, H, P); "
                          f"got {tuple(x.shape)}")
-    lead = x.shape[:-1]                          # ([G,] Q, H)
-    n = b.shape[-1]
-    if b.shape != lead + (n,) or c.shape != b.shape or la.shape != lead:
+    lead = x.shape[:-2]                          # ([G,] Q)
+    h = x.shape[-2]
+    hg, n = b.shape[-2:] if b.ndim == x.ndim else (0, 0)
+    if (b.shape != lead + (hg, n) or c.shape != b.shape
+            or la.shape != lead + (h,)):
         raise ValueError(
-            f"ssd_chunk: need x {tuple(lead)}+(P,), b and c {tuple(lead)}+(N,), "
-            f"la {tuple(lead)}; got {tuple(x.shape)}, {tuple(b.shape)}, "
-            f"{tuple(c.shape)}, {tuple(la.shape)}"
+            f"ssd_chunk: need x {tuple(lead)}+(H, P), b and c {tuple(lead)}+"
+            f"(Hg, N), la {tuple(lead)}+(H,); got {tuple(x.shape)}, "
+            f"{tuple(b.shape)}, {tuple(c.shape)}, {tuple(la.shape)}"
         )
+    if hg == 0 or h % hg:
+        raise ValueError(f"ssd_chunk: H = {h} heads must be a multiple of "
+                         f"the Hg = {hg} groups of b and c")
     g = x.shape[0] if x.ndim == 4 else 1
-    q, h, p = x.shape[-3:]
-    return g, q, h, p, n
+    return g, x.shape[-3], h, hg, x.shape[-1], n
 
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -38,17 +43,21 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """Mamba-2 SSD intra-chunk output and chunk state over ``G`` chunks.
 
     ``x`` ([G,] Q, H, P) is the input already scaled by ``dt``, ``b``/``c``
-    ([G,] Q, H, N) the per-head B and C (a group shared by several heads is
-    materialised per head by the caller), ``la`` ([G,] Q, H) the log
-    decays.  Returns ``y`` ([G,] Q, H, P) and ``state`` ([G,] H, N, P).
-    Without ``G`` it is the reference's single-chunk call.
+    ([G,] Q, Hg, N) B and C per group of ``H / Hg`` heads (head ``h`` reads
+    group ``h // (H / Hg)``; ``Hg = H`` is the reference's per-head call),
+    ``la`` ([G,] Q, H) the log decays.  Returns ``y`` ([G,] Q, H, P) and
+    ``state`` ([G,] H, N, P).  Without ``G`` it is the reference's
+    single-chunk call.  Every operand must be contiguous, on either device.
 
     CPU tensors run :func:`ssd_chunk_ref`; CUDA tensors run the CUDA kernel
-    ``csrc/ssd_chunk.cu`` (contiguous f32 operands) or raise.  The two
-    agree within the reference's ``rtol = atol = 1e-4``: they sum in other
-    orders, and the kernel uses fused multiply-adds.
+    ``csrc/ssd_chunk.cu`` (f32 operands) or raise: one call of its C entry
+    launches two grids, the group scores ``C.B^T`` into a scratch buffer,
+    then the per-head blocks.  The two agree within the reference's
+    ``rtol = atol = 1e-4``: they sum in other orders, and the kernel's
+    products are three TF32 products each (3xTF32).
     """
-    g, q, h, p, n = _shapes(x, b, c, la)
+    g, q, h, hg, p, n = _shapes(x, b, c, la)
+    _common.check_contiguous("ssd_chunk", x=x, b=b, c=c, la=la)
     if _common.on_cpu(x, b, c, la):
         return ssd_chunk_ref(x, b, c, la)
     dev = _common.check_cuda("ssd_chunk", x=x, b=b, c=c, la=la)
@@ -59,12 +68,20 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if g * q * h * p * n == 0:
         # a zero-size grid is an invalid launch; an empty chunk sums to 0
         return y.zero_(), state.zero_()
-    global _fn, LAUNCHES
+    global _fn, _scratch_floats, LAUNCHES
     if _fn is None:
         _fn = _common.load("ssd_chunk", "ssd_chunk_f32", _ARGTYPES)
+        _scratch_floats = _common.load("ssd_chunk", "ssd_chunk_scratch_floats",
+                                       [ctypes.c_int64] * 3, ctypes.c_int64)
+    # the kernel's group scores C.B^T (tiles below the diagonal)
+    scores = torch.empty(_scratch_floats(g, q, hg), dtype=torch.float32, device=dev)
+    # 16-byte copies need every row of x, b and c 16-byte aligned
+    vec = int(p % 4 == 0 and n % 4 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
     status = _fn(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), la.data_ptr(),
-        y.data_ptr(), state.data_ptr(), g, q, h, p, n, _common.stream(dev),
+        y.data_ptr(), state.data_ptr(), scores.data_ptr(), g, q, h, hg, p, n, vec,
+        _common.stream(dev),
     )
     _common.check(status, "ssd_chunk")
     LAUNCHES += 1

@@ -16,7 +16,9 @@ intra-chunk block (``y_diag`` and the chunk ``states``, ``blocks.py``
 The port routes that same function through K5
 (:func:`repro_torch.kernels.ssd_chunk.ssd_chunk`), the kernel the reference
 built for exactly this chunk, once per layer over all ``B * C`` chunks.
-The tests hold the block and the whole model to the reference's inline
+B and C go to K5 once per group (``n_groups``), not repeated per head:
+the kernel reads group ``h // (heads / groups)`` for head ``h``.  The
+tests hold the block and the whole model to the reference's inline
 math.  The reference's ``_segsum`` has no counterpart here: the kernel's
 plain version (:mod:`repro_torch.kernels.ssd_chunk.ref`) forms the same
 masked decay logs.
@@ -101,8 +103,8 @@ def mamba2_forward(
 
     xs, bmat, cmat = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
     xs = xs.reshape(b, -1, nh, hdim)
-    bmat = bmat.reshape(b, -1, g, n).repeat_interleave(nh // g, dim=2)
-    cmat = cmat.reshape(b, -1, g, n).repeat_interleave(nh // g, dim=2)
+    bmat = bmat.reshape(b, -1, g, n)                       # per group, not head
+    cmat = cmat.reshape(b, -1, g, n)
     # jax.nn.softplus is exact everywhere; F.softplus returns its input
     # above 20, where the two differ by under 2.1e-9: below half an f32 ulp
     # of 20, so the f32 results are equal
@@ -113,11 +115,13 @@ def mamba2_forward(
     if mode == "decode":
         h_state = cache["ssd"]                                        # (B,H,P,N)
         dec = torch.exp(la[:, 0, :])                                  # (B,H)
+        b_t = bmat[:, 0].repeat_interleave(nh // g, dim=1)            # (B,H,N)
+        c_t = cmat[:, 0].repeat_interleave(nh // g, dim=1)
         # "bh,bhn,bhp->bhpn"
         dbx = (dt[:, 0, :, None, None] * xs[:, 0].to(f32)[..., :, None]
-               * bmat[:, 0].to(f32)[..., None, :])
+               * b_t.to(f32)[..., None, :])
         h_state = dec[:, :, None, None] * h_state + dbx
-        y = torch.einsum("bhn,bhpn->bhp", cmat[:, 0].to(f32), h_state)
+        y = torch.einsum("bhn,bhpn->bhp", c_t.to(f32), h_state)
         y = y + p["D_skip"].to(f32)[None, :, None] * xs[:, 0].to(f32)
         y = y.reshape(b, 1, d_in)
         new_cache["ssd"] = h_state
@@ -133,14 +137,14 @@ def mamba2_forward(
         xc = xs.reshape(b, nc, q, nh, hdim)
         lac = la.reshape(b, nc, q, nh)
         xdt = xc.to(f32) * dt.reshape(b, nc, q, nh)[..., None]       # (B,C,Q,H,P)
-        cc = cmat.to(f32).reshape(b, nc, q, nh, n)
+        cc = cmat.to(f32).reshape(b, nc, q, g, n).contiguous()       # (B,C,Q,G,N)
         # the intra-chunk block, y_diag and the chunk states: K5 over B*C
-        # chunks; B and C go in repeated per head (repeat_interleave above),
-        # contiguous, so the kernel reads one head's rows like x's
+        # chunks; B and C go in once per group, contiguous (in f32 without
+        # padding they are views of the split, so this copies (B,S,G,N))
         y_diag, states = ssd_chunk(
             xdt.reshape(b * nc, q, nh, hdim).contiguous(),
-            bmat.to(f32).reshape(b * nc, q, nh, n).contiguous(),
-            cc.reshape(b * nc, q, nh, n).contiguous(),
+            bmat.to(f32).reshape(b * nc, q, g, n).contiguous(),
+            cc.reshape(b * nc, q, g, n),
             lac.reshape(b * nc, q, nh).contiguous(),
         )
         y_diag = y_diag.reshape(b, nc, q, nh, hdim)
@@ -160,9 +164,12 @@ def mamba2_forward(
             hcur = chunk_dec[:, ci, :, None, None] * hcur + states[:, ci]
         hprevs = torch.stack(hprevs, dim=1)                           # (B,C,H,N,P)
         dec_from_start = torch.exp(cs)                                # (B,C,Q,H)
-        # "bcqhn,bchnp,bcqh->bcqhp"
-        y_off = (torch.einsum("bcqhn,bchnp->bcqhp", cc, hprevs)
-                 * dec_from_start[..., None])
+        # "bcqhn,bchnp,bcqh->bcqhp" with C read per group: heads as
+        # (groups, heads per group)
+        y_off = torch.einsum(
+            "bcqgn,bcgknp->bcqgkp", cc,
+            hprevs.reshape(b, nc, g, nh // g, n, hdim),
+        ).reshape(b, nc, q, nh, hdim) * dec_from_start[..., None]
         y = (y_diag + y_off).reshape(b, nc * q, nh, hdim)[:, :s]
         y = y + p["D_skip"].to(f32)[None, None, :, None] * xs[:, :s].to(f32)
         y = y.reshape(b, s, d_in)

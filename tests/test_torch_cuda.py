@@ -149,6 +149,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         sparse_gather(f32, idx.long(), f32)
     with pytest.raises(ValueError, match=r"\(R, L\)"):
         sparse_gather(f32, idx[:3].contiguous(), f32)
+    with pytest.raises(ValueError, match="ell_val must be contiguous"):
+        sparse_gather(f32.T.contiguous().T, idx, f32)
+    with pytest.raises(ValueError, match="ell_idx must be contiguous"):
+        sparse_gather(f32, idx.T.contiguous().T, f32)
 
 
 @pytest.mark.cuda
@@ -160,6 +164,32 @@ def test_gather_kernel_on_card(card, r, lanes, s, b):
     out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "sliced"])
+@pytest.mark.parametrize("lanes", [1, 78])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, 33, 600])
+def test_gather_kernel_strided_on_card(card, b, lanes, layout):
+    """Both designs (B <= 32 lanes-per-row, B > 32 columns-per-thread) on
+    ragged rows, with x source-major, as the view ``x_t.t()`` of a (B, S)
+    spike matrix (the fused step's call) and as a column slice of a wider
+    one: bitwise equal to the plain version, one launch each."""
+    r, s = 40, 2048
+    val, idx, x = (torch.from_numpy(a).to(card)
+                   for a in ell_operands(r, lanes, s, b, seed=b + lanes))
+    if layout == "transposed":
+        x = x.t().contiguous().t()
+    elif layout == "sliced":
+        wide = torch.zeros((s, b + 5), device=card)
+        wide[:, 2:2 + b] = x
+        x = wide[:, 2:2 + b]
+    before = launch_counts()["sparse_gather"]
+    out = sparse_gather(val, idx, x)
+    torch.cuda.synchronize()
+    assert launch_counts()["sparse_gather"] == before + 1
+    assert torch.equal(out, sparse_gather_ref(val, idx, x))
+    assert torch.equal(out, sparse_gather_ref(val, idx, x.contiguous()))
 
 
 @pytest.mark.cuda
@@ -261,13 +291,15 @@ SSD_SHAPES = [(1, 256, 24, 64, 128), (1, 64, 3, 16, 32), (1, 16, 1, 8, 8),
               (1, 128, 5, 32, 64), (16, 256, 24, 64, 128), (3, 100, 2, 80, 130)]
 
 
-def ssd_operands(g, q, h, p, n, seed, decay="test"):
+def ssd_operands(g, q, h, p, n, seed, decay="test", groups=None):
     """TestSSDChunk's draws; ``decay="mamba2"`` gives a mamba2 layer's log
-    decays (dt ~ 0.69 times A in [-16, -1]) instead of -|N(0, 0.1)|."""
+    decays (dt ~ 0.69 times A in [-16, -1]) instead of -|N(0, 0.1)|;
+    ``groups`` draws B and C once per group (default: per head)."""
     rng = np.random.default_rng(seed)
+    hg = h if groups is None else groups
     x = rng.normal(size=(g, q, h, p)).astype(np.float32)
-    b = rng.normal(size=(g, q, h, n)).astype(np.float32)
-    c = rng.normal(size=(g, q, h, n)).astype(np.float32)
+    b = rng.normal(size=(g, q, hg, n)).astype(np.float32)
+    c = rng.normal(size=(g, q, hg, n)).astype(np.float32)
     if decay == "test":
         la = -np.abs(rng.normal(size=(g, q, h)) * 0.1)
     else:
@@ -296,6 +328,36 @@ def test_ssd_kernel_on_card(card, shape, decay):
     torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
 
 
+#: (G, Q, H, P, N, Hg): mamba2-130m's prefill (one group for 24 heads) at
+#: batch 4 x 1024 tokens and at one chunk, and ragged shapes with groups
+SSD_GROUPED = [(16, 256, 24, 64, 128, 1), (1, 256, 24, 64, 128, 1),
+               (3, 100, 6, 80, 130, 2), (2, 64, 4, 16, 32, 2), (1, 16, 3, 8, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["test", "mamba2"])
+@pytest.mark.parametrize("shape", SSD_GROUPED)
+def test_ssd_kernel_grouped_on_card(card, shape, decay):
+    """K5 with B and C shared by groups of heads against its plain version
+    (rtol = atol = 1e-4), and against the per-head call on the same B and C
+    repeated for every head."""
+    *dims, hg = shape
+    ops = [torch.from_numpy(a).to(card)
+           for a in ssd_operands(*dims, seed=9, decay=decay, groups=hg)]
+    before = launch_counts()["ssd_chunk"]
+    y, s = ssd_chunk(*ops)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == before + 1
+    yr, sr = ssd_chunk_ref(*ops)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+    x, b, c, la = ops
+    per_head = [t.repeat_interleave(dims[2] // hg, dim=2) for t in (b, c)]
+    yh, sh = ssd_chunk(x, *per_head, la)
+    torch.testing.assert_close(yh, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sh, sr, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_ssd_wrapper_edges_and_refusals(card):
     before = launch_counts()["ssd_chunk"]
@@ -319,6 +381,12 @@ def test_ssd_wrapper_edges_and_refusals(card):
         ssd_chunk(x, b.transpose(0, 1).contiguous().transpose(0, 1), c, la)
     with pytest.raises(ValueError, match="b and c"):
         ssd_chunk(x, b[..., :4].contiguous(), c, la)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x, b, c.transpose(0, 1).contiguous().transpose(0, 1), la)
+    x3, b3, c3, la3 = (torch.from_numpy(a[0]).to(card)
+                       for a in ssd_operands(1, 16, 3, 8, 8, seed=1, groups=2))
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_chunk(x3, b3, c3, la3)
     assert launch_counts()["ssd_chunk"] == before
 
 

@@ -160,6 +160,37 @@ def test_sparse_gather_matches_pallas_body(r, lanes, s, b):
     np.testing.assert_array_equal(out, want)
 
 
+@pytest.mark.parametrize("layout", ["transposed", "sliced"])
+@pytest.mark.parametrize("r,lanes,s,b", [(40, 78, 2048, 8), (300, 17, 500, 3),
+                                         (40, 78, 500, 600)])
+def test_sparse_gather_strided_x_matches_jax(r, lanes, s, b, layout):
+    """x as a strided view (the fused step's ``x_t.t()`` of a (B, S) spike
+    matrix, or a column slice of a wider train), bitwise against the JAX
+    kernel on the same values made contiguous."""
+    val, idx, x = ell_operands(r, lanes, s, b, seed=r + b)
+    if layout == "transposed":
+        xt = torch.from_numpy(np.ascontiguousarray(x.T)).t()
+    else:
+        wide = np.zeros((s, b + 3), np.float32)
+        wide[:, 1:1 + b] = x
+        xt = torch.from_numpy(wide)[:, 1:1 + b]
+    assert not xt.is_contiguous()
+    out = sparse_gather(torch.from_numpy(val), torch.from_numpy(idx), xt).numpy()
+    want = np.asarray(jax_sparse_gather(*map(jnp.asarray, (val, idx, x))))
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("name", ["ell_val", "ell_idx"])
+def test_sparse_gather_refuses_strided_ell(name):
+    """Only x may be strided: the ELL operands must be contiguous on either
+    device (the kernel reads them row by row)."""
+    ops = dict(zip(("ell_val", "ell_idx", "x"),
+                   map(torch.from_numpy, ell_operands(8, 3, 10, 2, 0))))
+    ops[name] = ops[name].t().contiguous().t()
+    with pytest.raises(ValueError, match=f"{name} must be contiguous"):
+        sparse_gather(**ops)
+
+
 # -- K4: affine membrane scan -----------------------------------------------------
 @pytest.mark.parametrize("alpha,shape", [
     (0.0, (12, 40)), (1.0, (12, 40)), (0.5, (12, 40)),
@@ -196,6 +227,28 @@ def test_scan_empty_train():
     assert out.shape == (0, 7)
     with pytest.raises(ValueError, match=r"\(T, F\)"):
         lif_parallel_scan(torch.zeros((2, 3, 4)), alpha=0.5)
+
+
+def test_ptxas_report_reads_the_build_log(tmp_path, monkeypatch):
+    """What ptxas printed beside a built library, one row a kernel: its
+    name, then its spills, registers and shared memory."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "library_path", lambda name: tmp_path / "libk_01.so")
+    assert _build.ptxas_report("k") == []
+    (tmp_path / "libk_01.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 1024 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Used 8 registers\n")
+    assert _build.ptxas_report("k") == [
+        ("_Z3fooPf", "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+                     "loads; Used 40 registers, used 1 barriers, 1024 bytes smem"),
+        ("_Z3barv", "Used 8 registers"),
+    ]
 
 
 def test_plain_versions_count_no_launches():

@@ -89,6 +89,35 @@ def test_ssd_chunk_batched_equals_per_chunk_jax():
     np.testing.assert_array_equal(s1, s[1])
 
 
+#: (Q, H, P, N): a ragged shape and a mamba2 chunk's widths at few heads
+GROUPED_SHAPES = [(64, 4, 16, 32), (100, 6, 20, 36)]
+
+
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+@pytest.mark.parametrize("hg", ["1", "2", "H"])
+def test_ssd_chunk_grouped_matches_jax_kernel(shape, hg):
+    """B and C once per group of heads (``Hg`` of them) against the
+    reference's kernel (interpret mode) and its jnp oracle, which get the
+    same arrays repeated for every head, as the mamba2 block builds them."""
+    q, h, p, n = shape
+    groups = h if hg == "H" else int(hg)
+    x, _, _, la = ssd_operands(shape, seed=q + groups)
+    rng = np.random.default_rng(groups)
+    b, c = (rng.normal(size=(q, groups, n)).astype(np.float32) for _ in range(2))
+    y, s = port_ssd(x, b, c, la)
+    per_head = [jnp.asarray(np.repeat(a, h // groups, axis=1)) for a in (b, c)]
+    jx, jla = jnp.asarray(x), jnp.asarray(la)
+    for want_y, want_s in (jax_ssd_chunk(jx, *per_head, jla, interpret=True),
+                           jax_ssd_chunk_ref(jx, *per_head, jla)):
+        np.testing.assert_allclose(y, np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(s, np.asarray(want_s), **TOL)
+    # and G = 2 chunks in one call: each the single-chunk call's result
+    y2, s2 = port_ssd(*(np.stack([a, a]) for a in (x, b, c, la)))
+    for gi in range(2):
+        np.testing.assert_array_equal(y2[gi], y)
+        np.testing.assert_array_equal(s2[gi], s)
+
+
 def _sequential(x, b, c, la):
     """s_t = exp(la_t) s_{t-1} + b_t x_t^T;  y_t = c_t . s_t  (float64)."""
     q, h, p = x.shape
@@ -137,6 +166,22 @@ def test_ssd_chunk_wrapper_shapes_and_plain_path():
         ssd_chunk(x, b, c, la[:, :0])
     with pytest.raises(ValueError, match="b and c"):
         ssd_chunk(x, b, c[..., :4], la)
+
+
+@pytest.mark.parametrize("bad", ["groups", "b", "c"])
+def test_ssd_chunk_wrapper_refuses_on_either_device(bad):
+    """H % Hg != 0, and a non-contiguous b or c, are refused before the
+    device is looked at, so the plain path refuses what the kernel would."""
+    x, b, c, la = (torch.from_numpy(a) for a in ssd_operands((16, 6, 8, 8), 0))
+    if bad == "groups":
+        b, c = b[:, :4].contiguous(), c[:, :4].contiguous()
+        match = "multiple"
+    else:
+        t = {"b": b, "c": c}[bad].transpose(0, 1).contiguous().transpose(0, 1)
+        b, c = (t, c) if bad == "b" else (b, t)
+        match = f"{bad} must be contiguous"
+    with pytest.raises(ValueError, match=match):
+        ssd_chunk(x, b, c, la)
 
 
 # -- the mamba2 block and model ------------------------------------------------
@@ -193,6 +238,37 @@ def test_mamba2_layer_full_width_matches_jax(mode):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tcache["ssd"].numpy(), np.asarray(jcache["ssd"]),
                                rtol=1e-4, atol=1e-8)
+
+
+def test_mamba2_layer_with_two_groups_matches_jax():
+    """A mamba2 layer with n_groups = 2 (12 heads a group), the case
+    between one group and one per head: K5 gets B and C per group and
+    the y_off einsum reads C with the heads as (groups, heads a group)."""
+    ssm = dataclasses.replace(get_config("mamba2-130m").ssm, n_groups=2,
+                              d_state=32, chunk=64)
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32",
+                              n_layers=1, ssm=ssm)
+    jcfg = dataclasses.replace(
+        jax_get_config("mamba2-130m"), dtype="float32", n_layers=1, vocab=256,
+        ssm=dataclasses.replace(jax_get_config("mamba2-130m").ssm, n_groups=2,
+                                d_state=32, chunk=64))
+    jp = jax.tree.map(lambda a: a[0], jax_init.init_params(
+        jcfg, jax.random.PRNGKey(3))["groups"][0][0])
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    x = (np.random.default_rng(4).normal(size=(2, 100, 768)) * 0.5).astype(np.float32)
+    jy, jcache = jax_blocks.mamba2_forward(jp, jnp.asarray(x), jcfg,
+                                           mode="prefill", cache=None)
+    ty, tcache = blocks.mamba2_forward(tp, torch.from_numpy(x), cfg,
+                                       mode="prefill", cache=None)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tcache["ssd"].numpy(), np.asarray(jcache["ssd"]),
+                               rtol=1e-4, atol=1e-8)
+    tok = (np.random.default_rng(5).normal(size=(2, 1, 768)) * 0.5).astype(np.float32)
+    jy, _ = jax_blocks.mamba2_forward(jp, jnp.asarray(tok), jcfg, mode="decode",
+                                      cache=jcache)
+    ty, _ = blocks.mamba2_forward(tp, torch.from_numpy(tok), cfg, mode="decode",
+                                  cache=tcache)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-5)
 
 
 def _assert_caches(tc, jc):
