@@ -835,8 +835,9 @@ class NetworkExecutable:
         iterative populations additionally record their fixed-point pass
         count and residual in ``report.temporal[(batch, steps)]``
         (residual is 0 unless the ``max_iters`` cap — default T+1, which
-        guarantees convergence — cut the loop short).  Each fixed-point
-        pass reads one count back to the host; the trains and
+        guarantees convergence — cut the loop short).  On the card each
+        iterative population's fixed point is one kernel launch whose pass
+        count and residual are read back to the host once; the trains and
         :attr:`last_check` stay on the device.
         """
         if not self.metas:

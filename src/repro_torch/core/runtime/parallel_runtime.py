@@ -7,12 +7,12 @@ Per timestep:
    input merging table: column c of the buffer is
    ``x[t - delay(c)][source(c)]``, read via the *reversed order* ring
    indices.  The port keeps the ring batch-major, ``(B, depth, n_source)``
-   int8, so the read is one ``index_select`` of columns on the
-   ``(B, depth * n_source)`` view and lands directly in the ``(B, C)``
-   layout the matmul kernel reads (no transpose is ever materialised).
+   int8.
 2. **Subordinate PEs** — one int8 x int8 -> int32 matmul of the optimized
-   weight-delay-map with the stacked input: the CUDA kernel
-   :func:`repro_torch.kernels.spike_wdm_matmul`.
+   weight-delay-map with the stacked input.  Steps 1 and 2 are one CUDA
+   launch, :func:`repro_torch.kernels.spike_wdm_matmul.spike_wdm_project`:
+   each block gathers its lane's stacked row from the ring into shared
+   memory and multiplies it there, writing the f32 current.
 3. Fused LIF update (:func:`repro_torch.kernels.lif_update`).
 
 Bit-identical to the dense oracle: every accumulation is an exact int32.
@@ -30,7 +30,7 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.lif_update import lif_update
-from ...kernels.spike_wdm_matmul import spike_wdm_matmul
+from ...kernels.spike_wdm_matmul import spike_wdm_project
 from ..layer import LIFParams, SNNLayer
 from ..parallel_compiler import OptFlags, ParallelProgram, compile_parallel
 from .reference import LIFState, init_state
@@ -113,20 +113,13 @@ def parallel_project(
     in (in place) and the ``(B, n_target)`` f32 input current the target
     population consumes at ``t``.
     """
-    # the allocated ring IS the truth for the depth (clamped >= 1 at
-    # allocation via ring_depth), so the index arithmetic cannot drift
-    batch, d, n_source = x_hist.shape
-    # dominant PE: stacked input via merging table + reversed order; one
-    # column gather on the (B, depth * n_source) ring view.  torch's % on
-    # integer tensors is a floor-mod, like the reference's jnp %.
-    slot = (t - col_delay.long()) % d                             # (C,)
-    stacked = x_hist.view(batch, d * n_source).index_select(
-        1, slot * n_source + col_source
-    )                                        # (B, C) int8, a fresh copy
-    i_t = spike_wdm_matmul(wdm_stack, stacked).to(torch.float32)  # (B, T)
+    # dominant PE + MAC array in one call: the kernel gathers each lane's
+    # stacked row from the ring through the merging table itself
+    i_t = spike_wdm_project(wdm_stack, col_source, col_delay, x_hist, t)
     # write x_t into the history ring AFTER the read (delays are >= 1); the
-    # gather above copied its columns, so the write cannot reach them
-    x_hist[:, t % d] = x_t.to(torch.int8)
+    # copy casts the 0/1 spikes to int8 exactly.  The allocated ring IS the
+    # truth for the depth (clamped >= 1 at allocation via ring_depth).
+    x_hist[:, t % x_hist.shape[1]].copy_(x_t)
     return x_hist, i_t
 
 

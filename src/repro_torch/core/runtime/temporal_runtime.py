@@ -27,11 +27,13 @@ consecutive steps.  Three resolution modes, picked per population by
     Pass k feeds the spikes of pass k-1 into the reset currents ``c[t] =
     i[t] - z[t-1]*v_th`` and re-runs the reset-free affine scan.  After
     pass k the first k timesteps are final, so the iteration converges in
-    at most T+1 passes.  Each pass reads its spike-flip count back to the
-    host once, to decide whether to go on: the reference's
-    ``lax.while_loop`` with the same stopping rule, so the pass count and
-    the residual (flips between the last two passes, 0 on convergence)
-    equal the reference's pass for pass.
+    at most T+1 passes.  The reference's ``lax.while_loop`` stops when a
+    pass flips no spike or at the cap;
+    :func:`repro_torch.kernels.lif_parallel_scan.lif_fixed_point` keeps
+    that rule, so the pass count and the residual (flips between the last
+    two passes, 0 on convergence) equal the reference's.  On the card the
+    whole loop is one K4 launch in which each feature runs its own passes,
+    and the two counts come back to the host once per population.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ...kernels.lif_parallel_scan import lif_parallel_scan
+from ...kernels.lif_parallel_scan import lif_fixed_point
 from ...kernels.sparse_gather import sparse_gather
 from .reference import require_full_f32
 
@@ -174,20 +176,10 @@ def _temporal_iterative(
     i_full: torch.Tensor, v_th: float, alpha: float, max_iters: int
 ):
     steps = i_full.shape[0]
-    flat = i_full.reshape(steps, -1)
-    vth = float(v_th)                                  # enters the ops as f32
-    z = torch.zeros_like(flat)
-    iters, diff = 0, 1
-    while diff > 0 and iters < max_iters:
-        zprev = torch.cat([torch.zeros_like(z[:1]), z[:-1]])
-        v = lif_parallel_scan(flat - zprev * vth, alpha=alpha)
-        z_new = (v >= vth).to(torch.float32)
-        # the one host read of the pass: go on while any spike flipped
-        diff = int((z_new != z).sum())
-        iters, z = iters + 1, z_new
-    # `diff` is the flip count of the final pass: 0 on convergence,
-    # positive only when the max_iters cap cut the loop short.
-    return z.reshape(i_full.shape), iters, diff
+    z, iters, residual = lif_fixed_point(
+        i_full.reshape(steps, -1), alpha=alpha, v_th=v_th, cap=max_iters
+    )
+    return z.reshape(i_full.shape), iters, residual
 
 
 def temporal_lif(

@@ -3,8 +3,9 @@
 Every kernel package holds ``ops.py`` (the wrapper: the plain version for
 CPU tensors, the CUDA kernel for CUDA tensors, never a fallback between
 them), ``ref.py`` (the plain PyTorch version) and a source under
-``csrc/``.  Each wrapper counts its launches in a plain integer,
-``ops.LAUNCHES``, so a run can show that it went through the kernel.
+``csrc/``.  Each wrapper counts its launches in ``ops.LAUNCHES``, a dict
+of plain integers keyed by entry point (a source may have several), so a
+run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from .sparse_gather import ops as _gather_ops
 from .spike_wdm_matmul import ops as _wdm_ops
 from .ssd_chunk import ops as _ssd_ops
 
-#: kernel name -> its wrapper module (the name is also its ``csrc`` stem)
+#: kernel source (its ``csrc`` stem) -> its wrapper module
 KERNEL_OPS = {
     "lif_update": _lif_ops,
     "spike_wdm_matmul": _wdm_ops,
@@ -25,13 +26,15 @@ KERNEL_OPS = {
 
 
 def launch_counts() -> dict:
-    """Launches of each CUDA kernel since the last reset."""
-    return {name: mod.LAUNCHES for name, mod in KERNEL_OPS.items()}
+    """Launches of each kernel entry point since the last reset."""
+    return {entry: n for mod in KERNEL_OPS.values()
+            for entry, n in mod.LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in KERNEL_OPS.values():
-        mod.LAUNCHES = 0
+        for entry in mod.LAUNCHES:
+            mod.LAUNCHES[entry] = 0
 
 
 def build_kernels() -> None:

@@ -1,1 +1,8 @@
-from .ops import lif_parallel_scan, lif_parallel_scan_ref
+from .ops import (
+    lif_fixed_point,
+    lif_fixed_point_launch,
+    lif_fixed_point_ref,
+    lif_parallel_scan,
+    lif_parallel_scan_ref,
+    staged_steps_limit,
+)

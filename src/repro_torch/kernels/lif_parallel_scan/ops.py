@@ -1,4 +1,5 @@
-"""Wrapper of the affine membrane scan: plain version on CPU, K4 on CUDA."""
+"""Wrappers of the affine membrane scan and of the iterative fixed point:
+plain versions on CPU, K4 on CUDA."""
 from __future__ import annotations
 
 import ctypes
@@ -6,15 +7,21 @@ import ctypes
 import torch
 
 from .. import _common
-from .ref import lif_parallel_scan_ref
+from .ref import lif_fixed_point_ref, lif_parallel_scan_ref
 
-#: Launches of the CUDA kernel (never incremented by the plain version).
-LAUNCHES = 0
+#: Launches of the CUDA kernels by entry point (the plain versions count none).
+LAUNCHES = {"lif_parallel_scan": 0, "lif_fixed_point": 0}
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p,
 ]
+_FP_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
 _fn = None
+_fp_fn = None
+_limits_of = {}
 
 
 def lif_parallel_scan(c: torch.Tensor, *, alpha: float) -> torch.Tensor:
@@ -37,7 +44,7 @@ def lif_parallel_scan(c: torch.Tensor, *, alpha: float) -> torch.Tensor:
     steps, feat = c.shape
     if steps == 0 or feat == 0:
         return v                     # a zero-size grid is an invalid launch
-    global _fn, LAUNCHES
+    global _fn
     if _fn is None:
         _fn = _common.load("lif_parallel_scan", "affine_scan_f32", _ARGTYPES)
     status = _fn(
@@ -45,8 +52,101 @@ def lif_parallel_scan(c: torch.Tensor, *, alpha: float) -> torch.Tensor:
         _common.stream(dev),
     )
     _common.check(status, "lif_parallel_scan")
-    LAUNCHES += 1
+    LAUNCHES["lif_parallel_scan"] += 1
     return v
 
 
-__all__ = ["lif_parallel_scan", "lif_parallel_scan_ref", "LAUNCHES"]
+def _limits(device: torch.device):
+    key = torch.device(device).index or 0
+    if key not in _limits_of:
+        fn = _common.load("lif_parallel_scan", "fixed_point_limits",
+                          [ctypes.POINTER(ctypes.c_int64)] * 2)
+        staged, most = ctypes.c_int64(), ctypes.c_int64()
+        with torch.cuda.device(key):
+            status = fn(ctypes.byref(staged), ctypes.byref(most))
+        if status != 0:
+            raise RuntimeError("lif_fixed_point: cannot read the device's "
+                               "shared-memory limit")
+        _limits_of[key] = (staged.value, most.value)
+    return _limits_of[key]
+
+
+def staged_steps_limit(device: torch.device) -> int:
+    """The longest train whose currents the fixed-point kernel stages in
+    shared memory on ``device``; longer trains are read from device memory
+    on each pass (their spikes, a bit a step, stay in shared memory)."""
+    return _limits(device)[0]
+
+
+def _check_fixed_point_args(i_flat: torch.Tensor, cap: int) -> None:
+    if i_flat.ndim != 2:
+        raise ValueError(
+            f"lif_fixed_point: need (T, F); got {tuple(i_flat.shape)}"
+        )
+    if int(cap) < 1:
+        raise ValueError(f"lif_fixed_point: cap must be >= 1; got {cap}")
+
+
+def lif_fixed_point_launch(
+    i_flat: torch.Tensor, *, alpha: float, v_th: float, cap: int
+):
+    """:func:`lif_fixed_point` without the host read: returns ``(z,
+    stats)``, ``stats`` an int32 tensor ``(passes, residual)`` on the
+    tensor's device, so that the launch can be timed or captured."""
+    _check_fixed_point_args(i_flat, cap)
+    if _common.on_cpu(i_flat):
+        z, iters, residual = lif_fixed_point_ref(
+            i_flat, alpha=alpha, v_th=v_th, cap=cap)
+        return z, torch.tensor([iters, residual], dtype=torch.int32)
+    dev = _common.check_cuda("lif_fixed_point", i_flat=i_flat)
+    _common.check_dtype("lif_fixed_point", torch.float32, i_flat=i_flat)
+    steps, feat = i_flat.shape
+    z = torch.empty_like(i_flat)
+    if steps == 0 or feat == 0:        # the reference loop: one empty pass
+        return z, torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    global _fp_fn
+    if _fp_fn is None:
+        _fp_fn = _common.load("lif_parallel_scan", "lif_fixed_point_f32",
+                              _FP_ARGTYPES)
+    staged, most = _limits(dev)
+    if steps > most:
+        raise ValueError(f"lif_fixed_point: {steps} steps; the kernel keeps at "
+                         f"most {most} steps' spikes in shared memory")
+    staged = steps <= staged
+    status = _fp_fn(
+        i_flat.data_ptr(), z.data_ptr(), stats.data_ptr(), steps, feat,
+        ctypes.c_float(alpha), ctypes.c_float(v_th), int(cap), int(staged),
+        _common.stream(dev),
+    )
+    _common.check(status, "lif_fixed_point")
+    LAUNCHES["lif_fixed_point"] += 1
+    return z, stats
+
+
+def lif_fixed_point(
+    i_flat: torch.Tensor, *, alpha: float, v_th: float, cap: int
+):
+    """The iterative reset mode's fixed point over a ``(T, F)`` f32 train.
+
+    Returns ``(z, passes, residual)`` like :func:`lif_fixed_point_ref`:
+    f32 0/1 spikes and two host ints.  CPU tensors run the plain version,
+    one host read a pass; CUDA tensors run the whole loop in one launch of
+    ``csrc/lif_parallel_scan.cu`` (each feature runs its own passes) and
+    read the two ints back once, or raise.  Bitwise equal to the plain
+    version, passes and residual included.  ``cap >= 1``; an empty train
+    gives zeros with ``(1, 0)`` and no launch, as the plain loop does.
+    """
+    _check_fixed_point_args(i_flat, cap)
+    if _common.on_cpu(i_flat):
+        return lif_fixed_point_ref(i_flat, alpha=alpha, v_th=v_th, cap=cap)
+    z, stats = lif_fixed_point_launch(i_flat, alpha=alpha, v_th=v_th, cap=cap)
+    iters, residual = stats.tolist()         # the one host read
+    return z, iters, residual
+
+
+__all__ = [
+    "lif_fixed_point", "lif_fixed_point_launch", "lif_fixed_point_ref",
+    "lif_parallel_scan", "lif_parallel_scan_ref", "staged_steps_limit",
+    "LAUNCHES",
+]

@@ -8,8 +8,8 @@ import torch
 from .. import _common
 from .ref import lif_update_ref
 
-#: Launches of the CUDA kernel (never incremented by the plain version).
-LAUNCHES = 0
+#: Launches of the CUDA kernel by entry point (the plain version counts none).
+LAUNCHES = {"lif_update": 0}
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
@@ -46,7 +46,7 @@ def lif_update(
     n = i_t.numel()
     if n == 0:
         return v_new, z_new          # a zero-size grid is an invalid launch
-    global _fn, LAUNCHES
+    global _fn
     if _fn is None:
         _fn = _common.load("lif_update", "lif_update_f32", _ARGTYPES)
     status = _fn(
@@ -55,7 +55,7 @@ def lif_update(
         ctypes.c_float(alpha), ctypes.c_float(v_th), _common.stream(dev),
     )
     _common.check(status, "lif_update")
-    LAUNCHES += 1
+    LAUNCHES["lif_update"] += 1
     return v_new, z_new
 
 

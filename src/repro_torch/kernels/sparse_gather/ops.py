@@ -8,8 +8,8 @@ import torch
 from .. import _common
 from .ref import sparse_gather_ref
 
-#: Launches of the CUDA kernel (never incremented by the plain version).
-LAUNCHES = 0
+#: Launches of the CUDA kernel by entry point (the plain version counts none).
+LAUNCHES = {"sparse_gather": 0}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 _fn = None
@@ -48,7 +48,7 @@ def sparse_gather(
     out = torch.empty((r, b), dtype=torch.float32, device=dev)
     if r * b == 0:
         return out
-    global _fn, LAUNCHES
+    global _fn
     if _fn is None:
         _fn = _common.load("sparse_gather", "sparse_gather_f32", _ARGTYPES)
     status = _fn(
@@ -56,7 +56,7 @@ def sparse_gather(
         r, lanes, b, *x.stride(), _common.stream(dev),
     )
     _common.check(status, "sparse_gather")
-    LAUNCHES += 1
+    LAUNCHES["sparse_gather"] += 1
     return out
 
 

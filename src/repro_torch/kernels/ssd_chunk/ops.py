@@ -8,8 +8,8 @@ import torch
 from .. import _common
 from .ref import ssd_chunk_ref
 
-#: Launches of the CUDA kernel (never incremented by the plain version).
-LAUNCHES = 0
+#: Launches of the CUDA kernel by entry point (the plain version counts none).
+LAUNCHES = {"ssd_chunk": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
              + [ctypes.c_int, ctypes.c_void_p])
@@ -68,7 +68,7 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if g * q * h * p * n == 0:
         # a zero-size grid is an invalid launch; an empty chunk sums to 0
         return y.zero_(), state.zero_()
-    global _fn, _scratch_floats, LAUNCHES
+    global _fn, _scratch_floats
     if _fn is None:
         _fn = _common.load("ssd_chunk", "ssd_chunk_f32", _ARGTYPES)
         _scratch_floats = _common.load("ssd_chunk", "ssd_chunk_scratch_floats",
@@ -84,7 +84,7 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         _common.stream(dev),
     )
     _common.check(status, "ssd_chunk")
-    LAUNCHES += 1
+    LAUNCHES["ssd_chunk"] += 1
     return y, state
 
 

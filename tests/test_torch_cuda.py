@@ -18,14 +18,22 @@ from repro_torch.core.layer import LIFParams
 from repro_torch.core.runtime import network_executable
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.lif_parallel_scan import (
+    lif_fixed_point,
+    lif_fixed_point_launch,
+    lif_fixed_point_ref,
     lif_parallel_scan,
     lif_parallel_scan_ref,
+    staged_steps_limit,
 )
+from repro_torch.kernels.lif_parallel_scan import ops as lif_parallel_scan_ops
 from repro_torch.kernels.lif_update import lif_update, lif_update_ref
 from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
+from repro_torch.core.runtime.parallel_runtime import parallel_project
 from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
     spike_wdm_matmul_ref,
+    spike_wdm_project,
+    spike_wdm_project_ref,
 )
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
 
@@ -106,7 +114,8 @@ def test_lif_kernel_on_card(card, shape, alpha, v_th):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", WDM_SHAPES + [(512, 2048, 128), (33, 3, 5)])
+@pytest.mark.parametrize("m,k,n", WDM_SHAPES + [(512, 2048, 128), (33, 3, 5),
+                                                (33, 9000, 5)])
 def test_wdm_kernel_on_card(card, m, k, n):
     a, x = wdm_operands(m, k, n, seed=2)
     a, xt = torch.from_numpy(a).to(card), torch.from_numpy(x.T.copy()).to(card)
@@ -224,6 +233,180 @@ def test_scan_wrapper_edges_and_refusals(card):
         lif_parallel_scan(f32[None], alpha=0.5)
 
 
+def fixed_point_operands(shape, seed):
+    """(T, F) integer currents in [-40, 120): reset cascades that take the
+    columns different numbers of passes (tests/test_torch_fused.py)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-40, 120, size=shape).astype(np.float32)
+
+
+def sync_count(fn):
+    """How many times ``fn`` makes the host wait for the card (CUDA's sync
+    debug mode warns once per synchronising call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+#: (T, F) of the fused fixed point: the gesture path's two populations, a
+#: longer train, and (None) a train longer than the shared-memory staging
+#: limit, sized on the card
+FIXED_POINT_SHAPES = [(75, 160), (75, 32), (512, 64), (None, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.5, 0.9])
+@pytest.mark.parametrize("cap", ["1", "T+1"])
+@pytest.mark.parametrize("shape", FIXED_POINT_SHAPES)
+def test_fixed_point_kernel_on_card(card, shape, cap, alpha):
+    """One launch, bitwise equal to the plain per-pass loop in spikes,
+    passes and residual: staged in shared memory and, above the staging
+    limit, read from device memory on each pass."""
+    steps, feat = shape
+    if steps is None:
+        steps = staged_steps_limit(card) + 48
+    i = torch.from_numpy(fixed_point_operands((steps, feat), seed=feat)).to(card)
+    cap = 1 if cap == "1" else steps + 1
+    before = launch_counts()["lif_fixed_point"]
+    z, iters, residual = lif_fixed_point(i, alpha=alpha, v_th=64.0, cap=cap)
+    assert launch_counts()["lif_fixed_point"] == before + 1
+    zr, iters_r, residual_r = lif_fixed_point_ref(i, alpha=alpha, v_th=64.0, cap=cap)
+    assert torch.equal(z, zr)
+    assert (iters, residual) == (iters_r, residual_r)
+    # one pass from silence flips every spike it fires
+    assert residual == (int(z.sum()) if cap == 1 else 0)
+    assert 0 < float(z.mean()) < 1
+
+
+@pytest.mark.cuda
+def test_fixed_point_edges_and_refusals(card):
+    before = launch_counts()["lif_fixed_point"]
+    for shape in ((0, 5), (4, 0)):
+        z, iters, residual = lif_fixed_point(torch.zeros(shape, device=card),
+                                             alpha=0.5, v_th=64.0, cap=3)
+        assert z.shape == shape and z.device.type == "cuda"
+        assert (iters, residual) == (1, 0)
+    assert launch_counts()["lif_fixed_point"] == before
+    f32 = torch.zeros((6, 4), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        lif_fixed_point(f32.double(), alpha=0.5, v_th=64.0, cap=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        lif_fixed_point(f32.T, alpha=0.5, v_th=64.0, cap=3)
+    with pytest.raises(ValueError, match="cap"):
+        lif_fixed_point(f32, alpha=0.5, v_th=64.0, cap=0)
+    longest = lif_parallel_scan_ops._limits(card)[1]
+    with pytest.raises(ValueError, match="at most"):
+        lif_fixed_point(torch.zeros((longest + 1, 2), device=card), alpha=0.5,
+                        v_th=64.0, cap=2)
+    # the launch form reads nothing back: it makes the host wait for nothing
+    i = torch.from_numpy(fixed_point_operands((75, 160), seed=0)).to(card)
+    assert sync_count(lambda: lif_fixed_point_launch(i, alpha=0.5, v_th=64.0,
+                                                     cap=76)) == 0
+    assert sync_count(lambda: lif_fixed_point(i, alpha=0.5, v_th=64.0, cap=76)) == 1
+
+
+def project_operands(m, k, batch, depth, n_source, seed):
+    rng = np.random.default_rng(seed)
+    wdm = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    col_source = rng.integers(0, n_source, k).astype(np.int32)
+    col_delay = rng.integers(1, depth + 1, k).astype(np.int32)
+    ring = (rng.random((batch, depth, n_source)) < 0.3).astype(np.int8)
+    return wdm, col_source, col_delay, ring
+
+
+#: (M, K, B, d, S): the gesture path's parallel edge (d 1), a ring of depth
+#: 4, and a K above the kernel's 1 KB staging tile
+PROJECT_SHAPES = [(20, 965, 8, 1, 2048), (4, 20, 1, 1, 20), (20, 965, 8, 4, 2048),
+                  (33, 9000, 5, 4, 3000), (300, 700, 36, 3, 500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,batch,depth,n_source", PROJECT_SHAPES)
+def test_project_kernel_on_card(card, m, k, batch, depth, n_source):
+    """The ring gather inside the kernel, bitwise equal to the plain
+    version (gather, int8 product, cast) at t from 0 past three ring
+    depths, so the slots wrap around and t - delay goes negative."""
+    ops = [torch.from_numpy(a).to(card)
+           for a in project_operands(m, k, batch, depth, n_source, seed=k)]
+    for t in range(3 * depth + 1):
+        before = launch_counts()["spike_wdm_project"]
+        out = spike_wdm_project(*ops, t)
+        assert launch_counts()["spike_wdm_project"] == before + 1
+        ref = spike_wdm_project_ref(*ops, t)
+        assert out.dtype == torch.float32 and torch.equal(out, ref), f"t={t}"
+    assert float(out.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_wdm_kernels_take_a_wdm_at_any_byte(card, offset):
+    """A contiguous WDM view that starts off a 4-byte boundary (the kernel
+    reads it as aligned words) gives the same currents."""
+    wdm, src, dly, ring = project_operands(20, 965, 8, 4, 2048, seed=offset)
+    base = torch.zeros(wdm.size + 8, dtype=torch.int8, device=card)
+    view = base[offset:offset + wdm.size].view(wdm.shape)
+    view.copy_(torch.from_numpy(wdm))
+    assert view.is_contiguous() and view.data_ptr() % 4 == offset
+    src, dly, ring = (torch.from_numpy(a).to(card) for a in (src, dly, ring))
+    assert torch.equal(spike_wdm_project(view, src, dly, ring, 3),
+                       spike_wdm_project_ref(view, src, dly, ring, 3))
+    stacked = ring[:, 0, :965].contiguous()
+    assert torch.equal(spike_wdm_matmul(view, stacked),
+                       spike_wdm_matmul_ref(view, stacked))
+
+
+@pytest.mark.cuda
+def test_project_edges_and_refusals(card):
+    wdm, src, dly, ring = (torch.from_numpy(a).to(card)
+                           for a in project_operands(20, 965, 8, 4, 2048, seed=0))
+    before = launch_counts()["spike_wdm_project"]
+    empty = spike_wdm_project(wdm[:, :0].contiguous(), src[:0], dly[:0], ring, 3)
+    assert empty.shape == (8, 20) and not empty.any()
+    assert launch_counts()["spike_wdm_project"] == before
+    with pytest.raises(TypeError, match="int32"):
+        spike_wdm_project(wdm, src.long(), dly, ring, 3)
+    with pytest.raises(TypeError, match="int8"):
+        spike_wdm_project(wdm, src, dly, ring.float(), 3)
+    with pytest.raises(ValueError, match="x_hist must be contiguous"):
+        spike_wdm_project(wdm, src, dly, ring.transpose(0, 1), 3)
+    with pytest.raises(ValueError, match="wdm must be contiguous"):
+        spike_wdm_project(wdm.T.contiguous().T, src, dly, ring, 3)
+    with pytest.raises(ValueError, match=r"\(K,\)"):
+        spike_wdm_project(wdm, src[:5], dly, ring, 3)
+
+
+@pytest.mark.cuda
+def test_parallel_project_is_one_kernel_and_one_copy(card):
+    """On the card a parallel edge's step is the fused K2 and the ring
+    write, two device operations and no host wait."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wdm, src, dly, ring = (torch.from_numpy(a).to(card)
+                           for a in project_operands(20, 965, 8, 1, 2048, seed=1))
+    x_t = (torch.rand((8, 2048), device=card) < 0.2).float()
+    parallel_project(wdm, src, dly, ring, x_t, 4)            # warm up
+    want = spike_wdm_project_ref(wdm, src, dly, ring, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, i_t = parallel_project(wdm, src, dly, ring, x_t, 5)
+        torch.cuda.synchronize()
+    device_ops = sum(e.count for e in prof.key_averages()
+                     if e.self_cpu_time_total == 0 and e.self_device_time_total > 0)
+    assert device_ops == 2
+    assert torch.equal(i_t, want)
+    assert torch.equal(ring[:, 0], x_t.to(torch.int8))
+    assert sync_count(lambda: parallel_project(wdm, src, dly, ring, x_t, 6)) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("policy", ["serial", "parallel", "ideal"])
 def test_gesture_temporal_on_card_equals_cpu(card, policy):
@@ -244,7 +427,11 @@ def test_gesture_temporal_on_card_equals_cpu(card, policy):
     assert bool(exe.last_check)
     counts = launch_counts()
     rec = report.temporal[(8, 75)]
-    assert counts["lif_parallel_scan"] == sum(rec.iterations.values()) > 0
+    # one fused fixed-point launch per iterative population, whatever its
+    # pass count, and no standalone scan
+    assert counts["lif_fixed_point"] == list(rec.modes.values()).count("iterative") > 0
+    assert counts["lif_parallel_scan"] == 0
+    assert sum(rec.iterations.values()) > counts["lif_fixed_point"]
     forms = report.serial_forms[("temporal", 8)]
     assert counts["sparse_gather"] == forms.count("temporal_sparse")
     assert all(r == 0 for r in rec.residual.values())
@@ -253,6 +440,10 @@ def test_gesture_temporal_on_card_equals_cpu(card, policy):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     assert report.temporal[(8, 75)] == rec
+    xs = torch.as_tensor(x, device=card)
+    vs = torch.as_tensor(valid, device=card)
+    assert sync_count(lambda: exe.run_temporal(xs, valid_steps=vs)) == \
+        counts["lif_fixed_point"]
     for a, b in zip(got, cpu.run(x, valid_steps=valid)):
         np.testing.assert_array_equal(a, b)
 
@@ -277,7 +468,8 @@ def test_gesture_on_card_equals_cpu(card, policy):
     counts = launch_counts()
     assert counts["lif_update"] == 30 * 2
     paradigms = [layer.paradigm for layer in report.layers]
-    assert counts["spike_wdm_matmul"] == 30 * paradigms.count("parallel")
+    assert counts["spike_wdm_project"] == 30 * paradigms.count("parallel")
+    assert counts["spike_wdm_matmul"] == 0
     assert counts["sparse_gather"] == 30 * paradigms.count("serial")
     cpu = network_executable(net, report, device="cpu").run(x, valid_steps=valid)
     for a, b in zip(got, cpu):

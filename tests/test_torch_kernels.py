@@ -22,12 +22,16 @@ from repro.kernels.lif_update import lif_update as jax_lif_update
 from repro.kernels.sparse_gather import sparse_gather as jax_sparse_gather
 from repro.kernels.spike_wdm_matmul import spike_wdm_matmul as jax_wdm_matmul
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.lif_parallel_scan import lif_parallel_scan
+from repro_torch.kernels.lif_parallel_scan import (
+    lif_fixed_point,
+    lif_parallel_scan,
+)
 from repro_torch.kernels.lif_update import lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
     spike_wdm_matmul_ref,
+    spike_wdm_project,
 )
 from repro_torch.kernels.ssd_chunk import ssd_chunk
 from test_torch_cuda import (
@@ -258,9 +262,15 @@ def test_plain_versions_count_no_launches():
     port_wdm(a, x)
     sparse_gather(*map(torch.from_numpy, ell_operands(8, 3, 10, 2, 0)))
     lif_parallel_scan(torch.from_numpy(scan_operands((6, 5), 0)), alpha=0.5)
+    lif_fixed_point(torch.from_numpy(scan_operands((6, 5), 0)), alpha=0.5,
+                    v_th=2.0, cap=7)
+    spike_wdm_project(torch.from_numpy(a), torch.zeros(16, dtype=torch.int32),
+                      torch.ones(16, dtype=torch.int32),
+                      torch.zeros((2, 1, 3), dtype=torch.int8), 0)
     ssd_chunk(torch.zeros((4, 2, 3)), torch.zeros((4, 2, 5)),
               torch.zeros((4, 2, 5)), torch.zeros((4, 2)))
     assert launch_counts() == {
-        "lif_update": 0, "spike_wdm_matmul": 0, "sparse_gather": 0,
-        "lif_parallel_scan": 0, "ssd_chunk": 0,
+        "lif_update": 0, "spike_wdm_matmul": 0, "spike_wdm_project": 0,
+        "sparse_gather": 0, "lif_parallel_scan": 0, "lif_fixed_point": 0,
+        "ssd_chunk": 0,
     }
