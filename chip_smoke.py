@@ -9,22 +9,30 @@ none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together), print the card's name
-   and power limit, and hold each of the seven kernel entry points against
+   and power limit, and hold each of the eight kernel entry points against
    its plain PyTorch version on the card: the LIF update bitwise on ``v``
-   and ``z`` with ``alpha`` in {0.5, 0.9}, the int8 WDM matmul and the ELL
+   and ``z`` with ``alpha`` in {0.5, 0.9}; the population step
+   (``lif_step``: ring delivery, sum, fire, int8 carry, spike row) bitwise
+   on ``v``, ``z``, the spike row and every ring, for every in-edge kind
+   (a parallel current; a serial ring with the sparse, dense and event
+   updates) at ``alpha`` in {0.5, 0.9}, up to eight edges and at 80,000
+   neurons; the int8 WDM matmul and the ELL
    gather exactly (the gather also with its spikes as strided views and at
-   600 columns), the parallel projection (the WDM matmul gathering its
+   600 columns; both WDM entries also at a batch of 70,000), the parallel
+   projection (the WDM matmul gathering its
    stacked rows from the spike ring) exactly for t past the ring depth,
    the affine membrane scan bitwise at ``alpha`` in {0, 0.5, 0.9, 1} on
    integer and normal currents, the fused fixed point of the iterative
    reset mode bitwise with equal pass counts and residuals at ``alpha`` in
-   {0.5, 0.9} and caps 1 and T+1 (staged in shared memory, and above the
-   staging limit), the SSD intra-chunk block within ``rtol = atol =
+   {0.5, 0.9} and caps 1 (or 2) and T+1 (staged in shared memory, above the
+   staging limit, and at T = 60,000 with its spike words in device
+   memory, against the plain version on a CPU copy), the SSD intra-chunk
+   block within ``rtol = atol =
    1e-4`` (the reference's tolerance; B and C per head and per group of
    heads), at the paths' shapes and at the shapes of the reference
    package's kernel tests and kernel benchmark; and the fused wrappers'
    refusals.  ptxas's registers, shared memory and spills are printed for
-   K2, K3, K4 and K5.
+   every source.
 2. **Compile.**  Train AdaBoost on a reduced paradigm-dataset grid that
    holds the gesture regime, and compile the paper's gesture network
    (2048-20-4, density 0.0316, §IV-C) under ``classifier``, ``serial``
@@ -35,7 +43,10 @@ none of which is caught and swallowed:
    valid_steps=...)`` for each report.  Every reply must equal, bit for
    bit, the request run alone at batch 1 on the card, the port on the CPU,
    and ``run_graph_reference``.  One parallel edge's step must be two
-   device operations (the fused K2 and the ring write) and no host wait.
+   device operations (the fused K2 and the ring write) and no host wait;
+   a whole step must be its projections' operations (two a parallel edge,
+   K3 a sparse serial edge) and one ``lif_step`` a population, counted
+   from the profiler at two train lengths, with no host wait in a launch.
 4. **Serve, temporal.**  The same micro-batches through ``run_temporal``
    (whole-train projections, the fused K4 once per iterative population
    for its whole fixed point, K3 for the sparse projections over all T·B
@@ -48,7 +59,10 @@ none of which is caught and swallowed:
    ``run_temporal`` under ``classifier``, held the same way.
 6. **Step-serial block.**  A small recurrent graph (self-loop on the
    hidden population) through ``run_temporal``: its back-edge interval
-   runs the step-serial loop (K1, K2) between whole-train populations.
+   runs the step-serial loop (K1's ``lif_step``, K2) between whole-train
+   populations; it and a graph with a self-loop and a feedback edge
+   (``examples/recurrent_snn.py``) also run through ``run_device``, held
+   against ``run_graph_reference``.
 7. **Serve mamba2-130m** at full width (24 layers, d 768, vocab 50280,
    state 128, head dim 64, chunk 256), random weights from seed 0:
    prefill at batch 4 x 1024 tokens, then 32 greedy decode steps.  (a) In
@@ -63,10 +77,13 @@ none of which is caught and swallowed:
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
 the served micro-batch's time per step on both paths, each beside the
-route the fused K2 and K4 replaced (the gather with the standalone K2,
-the per-pass loop with the standalone K4), timed in turns in the same
-run, with the host waits of a launch counted.  The line before
-the card line is the ``kernels`` JSON object; the last line is
+route the fused kernels replaced (on ``run_device`` the population step's
+eager glue around the standalone K1, on ``run_temporal`` the per-pass loop
+with the standalone K4), timed in turns in the same run, with the host
+waits of a launch counted; and the card's launch floor (an empty kernel,
+graph-replayed) beside ``lif_step``.
+
+The line before the card line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -97,6 +114,7 @@ MICRO_BATCH = 8
 #: kernel entry point -> the TPU kernel it replaces
 REPLACES = {
     "lif_update": "src/repro/kernels/lif_update/kernel.py:41",
+    "lif_step": "src/repro/kernels/lif_update/kernel.py:41",
     "spike_wdm_matmul": "src/repro/kernels/spike_wdm_matmul/kernel.py:54",
     "spike_wdm_project": "src/repro/kernels/spike_wdm_matmul/kernel.py:54",
     "sparse_gather": "src/repro/kernels/sparse_gather/kernel.py:48",
@@ -106,7 +124,11 @@ REPLACES = {
 }
 #: entry points whose source under src/repro_torch/csrc has another name
 SOURCE = {"spike_wdm_project": "spike_wdm_matmul",
-          "lif_fixed_point": "lif_parallel_scan"}
+          "lif_fixed_point": "lif_parallel_scan", "lif_step": "lif_update"}
+#: the population step's in-edge kinds: a parallel current, and a serial ring
+#: with its form's update layout (sparse: K3's (d*N, B) output viewed (d, B,
+#: N); dense: contiguous; event: a (B, d, N) scatter viewed (d, B, N))
+EDGE_KINDS = ("current", "sparse", "dense", "event")
 #: the fused fixed point's caps ("T+1" lets every column converge) and alphas
 FP_CAPS, FP_ALPHAS = ("1", "T+1"), (0.5, 0.9)
 #: cycles of one step of the fixed point's dependent chain (an f32 multiply
@@ -259,6 +281,76 @@ def fixed_point_inputs(shape, seed):
     return torch.tensor(rng.integers(-40, 120, shape), dtype=torch.float32).cuda()
 
 
+def long_train(steps, feat, seed):
+    """(T, F) currents that settle in at most 4 passes (tests/test_torch_cuda.py
+    ``long_train``): integers far below the threshold of 64, rare pulses of
+    100.  Returned on the host, where its plain version runs."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-12, 1, (steps, feat)).astype(np.float32)
+    pulse = rng.random((steps, feat)) < 0.002
+    return torch.from_numpy(np.where(pulse, np.float32(100.0), c))
+
+
+def step_inputs(kinds, batch, n, d_slots, t, seed, alpha):
+    """One population step's operands on the card: per in-edge kind a
+    current or a ring with its form's update as the strided view the
+    executor hands over (tests/test_torch_cuda.py ``lif_step_operands``),
+    integer currents, a real-valued membrane near ``v_th``, int8 spikes.
+    Returns ``(edges, v, z, out, v_th)``."""
+    from repro_torch.kernels.lif_update import CurrentEdge, RingEdge
+
+    rng = np.random.default_rng(seed)
+    v_th, scale = (64.0, 40) if alpha == 0.5 else (1.0, 1)
+
+    def ints(shape):
+        return torch.tensor(rng.integers(-3, 4, shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    edges = []
+    for kind in kinds:
+        if kind == "current":
+            edges.append(CurrentEdge(ints((batch, n))))
+            continue
+        ring = ints((d_slots, batch, n))
+        if kind == "sparse":
+            upd = ints((d_slots * n, batch)).view(d_slots, n, batch).permute(0, 2, 1)
+        elif kind == "dense":
+            upd = ints((d_slots, batch, n))
+        else:
+            upd = ints((batch, d_slots, n)).transpose(0, 1)
+        edges.append(RingEdge(ring, upd, 0 if kind == "event" else t))
+    v = torch.tensor(rng.normal(size=(batch, n)) * v_th, dtype=torch.float32).cuda()
+    z = torch.tensor(rng.integers(0, 2, (batch, n)), dtype=torch.int8).cuda()
+    return edges, v, z, torch.full((batch, n), -1.0, device="cuda"), v_th
+
+
+def clone_step(ops):
+    """A deep copy of :func:`step_inputs`' operands (rings and carry are
+    updated in place), the updates keeping their strides."""
+    from repro_torch.kernels.lif_update import CurrentEdge, RingEdge
+
+    def keep(x):                     # same strides, own memory
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device=x.device).copy_(x)
+
+    edges, v, z, out, v_th = ops
+    copy = [RingEdge(keep(e.ring), keep(e.upd), e.shift)
+            if isinstance(e, RingEdge) else CurrentEdge(keep(e.i)) for e in edges]
+    return copy, keep(v), keep(z), keep(out), v_th
+
+
+def step_diff(a, b) -> float:
+    """max |diff| of two population steps over v, z, the spike row and the
+    rings; inf unless every one of them is bitwise equal."""
+    from repro_torch.kernels.lif_update import RingEdge
+
+    pairs = [(a[1], b[1]), (a[3], b[3])] + [
+        (x.ring, y.ring) for x, y in zip(a[0], b[0]) if isinstance(x, RingEdge)]
+    same = torch.equal(a[2], b[2]) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in pairs)
+    return max(max_abs_diff(x, y) for x, y in pairs) if same else float("inf")
+
+
 def project_inputs(m, k, batch, depth, n_source, seed):
     """wdm (M, K), the merging table (K,) x 2 and a (B, d, S) int8 ring."""
     rng = np.random.default_rng(seed)
@@ -297,9 +389,11 @@ def check_kernels(shapes) -> dict:
     """Kernel vs plain version on the card at every shape; max |diff| each."""
     from repro_torch.kernels.lif_parallel_scan import (
         lif_fixed_point, lif_fixed_point_ref, lif_parallel_scan,
-        lif_parallel_scan_ref, staged_steps_limit,
+        lif_parallel_scan_ref, shared_words_limit, staged_steps_limit,
     )
-    from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+    from repro_torch.kernels.lif_update import (
+        lif_step, lif_step_ref, lif_update, lif_update_ref,
+    )
     from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
     from repro_torch.kernels.spike_wdm_matmul import (
         spike_wdm_matmul, spike_wdm_matmul_ref, spike_wdm_project,
@@ -308,6 +402,18 @@ def check_kernels(shapes) -> dict:
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
 
     err = {name: 0.0 for name in REPLACES}
+    for seed, (kinds, batch, n, d_slots) in enumerate(shapes["lif_step"]):
+        for alpha in (0.5, 0.9):
+            for t in (0, 2 * d_slots + 1):
+                got = step_inputs(kinds, batch, n, d_slots, t, seed, alpha)
+                want = clone_step(got)
+                lif_step(*got[:4], t, alpha=alpha, v_th=got[4])
+                lif_step_ref(*want[:4], t, alpha=alpha, v_th=want[4])
+                torch.cuda.synchronize()
+                diff = step_diff(got, want)
+                require(diff < float("inf"), f"lif_step not bitwise with edges "
+                        f"{kinds} at {(batch, n)}, d {d_slots}, t {t}, alpha {alpha}")
+                err["lif_step"] = max(err["lif_step"], diff)
     err["ssd_chunk/tol"] = 0.0      # max |diff| / (atol + rtol |ref|): the margin
     for seed, shape in enumerate(shapes["lif_update"]):
         for alpha, v_th in ((0.5, 64.0), (0.9, 1.0)):
@@ -359,22 +465,35 @@ def check_kernels(shapes) -> dict:
     empty = lif_parallel_scan(torch.zeros((0, 160), device="cuda"), alpha=0.5)
     require(empty.shape == (0, 160), "T == 0")
     for seed, (steps, feat) in enumerate(shapes["lif_fixed_point"]):
-        # None: a train longer than the shared-memory staging limit
-        steps = steps or staged_steps_limit(torch.device("cuda")) + 48
-        i = fixed_point_inputs((steps, feat), seed)
+        # None: a train longer than the shared-memory staging limit; "long":
+        # T = 60,000, past the spike words' limit, its plain version run on
+        # a CPU copy (the per-step loop on the card would take minutes)
+        long = steps == "long"
+        if long:
+            steps, host = 60_000, long_train(60_000, feat, feat)
+            require(steps > shared_words_limit(torch.device("cuda")),
+                    "T = 60,000 fits the spike words' shared-memory limit")
+            i = host.cuda()
+        else:
+            steps = steps or staged_steps_limit(torch.device("cuda")) + 48
+            i = fixed_point_inputs((steps, feat), seed)
+            host = i
         for alpha in FP_ALPHAS:
             for cap in FP_CAPS:
-                cap = 1 if cap == "1" else steps + 1
+                cap = (2 if long else 1) if cap == "1" else steps + 1
                 z, iters, resid = lif_fixed_point(i, alpha=alpha, v_th=64.0, cap=cap)
-                zr, iters_r, resid_r = lif_fixed_point_ref(i, alpha=alpha,
+                zr, iters_r, resid_r = lif_fixed_point_ref(host, alpha=alpha,
                                                           v_th=64.0, cap=cap)
+                z = z.to(zr.device)
                 require(torch.equal(z, zr) and (iters, resid) == (iters_r, resid_r),
                         f"lif_fixed_point differs at {(steps, feat)}, alpha "
                         f"{alpha}, cap {cap}: passes {iters} vs {iters_r}, "
                         f"residual {resid} vs {resid_r}")
                 # one pass from silence flips every spike it fires
-                require(resid == (int(z.sum()) if cap == 1 else 0),
+                require(long or resid == (int(z.sum()) if cap == 1 else 0),
                         f"lif_fixed_point residual {resid} at cap {cap}")
+                require(not long or iters <= 4,
+                        f"lif_fixed_point: {iters} passes on the long train")
                 err["lif_fixed_point"] = max(err["lif_fixed_point"],
                                              max_abs_diff(z, zr),
                                              abs(iters - iters_r), abs(resid - resid_r))
@@ -706,19 +825,79 @@ def hybrid_block():
     rec = dict(rep.temporal)[(3, 10)]
     require(rec.split[1] >= 1, f"hybrid: no step-serial block in {rec.split}")
     require(all(r == 0 for r in rec.residual.values()), "hybrid: residual")
-    for name in ("lif_update", "spike_wdm_project", "lif_fixed_point"):
+    for name in ("lif_step", "spike_wdm_project", "lif_fixed_point"):
         require(counts[name] > 0, f"hybrid: {name} not launched")
+    reset_launch_counts()
     fused = [z.cpu().numpy() for z in exe.run_device(x)]
+    steps = launch_counts()["lif_step"]
+    require(steps == 10 * 2, f"hybrid: {steps} lif_step launches in run_device")
     cpu = NetworkExecutable.build(net, rep, device="cpu").run(x, temporal=True)
     oracle = run_graph_reference(net, x)
     require(sum(float(z.sum()) for z in got) > 0, "hybrid: silent")
     for z, f, c, o in zip(got, fused, cpu, oracle):
+        require(np.array_equal(f, o), "hybrid: run_device differs from run_graph_reference")
         require(np.array_equal(z, f), "hybrid: temporal and run_device differ")
         require(np.array_equal(z, c), "hybrid: card and CPU differ")
         require(np.array_equal(z, o), "hybrid: differs from run_graph_reference")
     print(f"hybrid: split {rec.split}, modes {rec.modes}, passes "
-          f"{rec.iterations}; launches {counts}; bit-identical to run_device, "
-          f"the CPU and run_graph_reference")
+          f"{rec.iterations}; launches {counts}; bit-identical to run_device "
+          f"({steps} lif_step launches), the CPU and run_graph_reference")
+
+
+RECURRENT = (  # tests/test_torch_executor.py "recurrent" (examples/recurrent_snn.py)
+    [("in", 24), ("hid", 32), ("out", 10)],
+    [("in", "hid", 0.4, 2), ("hid", "hid", 0.25, 3),
+     ("hid", "out", 0.5, 2), ("out", "hid", 0.3, 1)],
+    ["serial", "parallel", "serial", "parallel"],
+    202,
+)
+
+
+def recurrent_device():
+    """A self-loop and a feedback edge (out -> hid) through run_device on
+    the card: back-edges read their source's previous output row; held
+    against run_graph_reference and the port on the CPU, masked too."""
+    from repro_torch.core import CompileReport, Population, SNNNetwork, SwitchingCompiler
+    from repro_torch.core.layer import LIFParams, random_projection
+    from repro_torch.core.runtime import (
+        NetworkExecutable, network_executable, run_graph_reference,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    pop_spec, proj_spec, paradigms, seed = RECURRENT
+    rng = np.random.default_rng(seed)
+    pops = {n: Population(n, s) for n, s in pop_spec}
+    projs = []
+    for pre, post, density, delay_range in proj_spec:
+        p = random_projection(pops[pre], pops[post], density, delay_range,
+                              seed=int(rng.integers(0, 2**31)),
+                              delay_granularity=str(rng.choice(["source", "synapse"])))
+        p.lif = LIFParams(alpha=0.5, v_th=64.0)
+        projs.append(p)
+    net = SNNNetwork(populations=list(pops.values()), projections=projs,
+                     name="recurrent")
+    rep = CompileReport(layers=[SwitchingCompiler(par).compile_layer(l)
+                                for par, l in zip(paradigms, net.layers)])
+    x = (np.random.default_rng(1).random((40, 4, net.n_input)) < 0.3).astype(np.float32)
+    valid = np.array([40, 7, 23, 1], np.int32)
+    exe = network_executable(net, rep)
+    reset_launch_counts()
+    got = [z.cpu().numpy() for z in exe.run_device(x)]
+    counts = launch_counts()
+    require(counts["lif_step"] == 40 * 2,
+            f"recurrent: {counts['lif_step']} lif_step launches for 40 steps of 2")
+    masked = [z.cpu().numpy() for z in exe.run_device(x, valid_steps=valid)]
+    cpu = NetworkExecutable.build(net, rep, device="cpu")
+    oracle = run_graph_reference(net, x)
+    require(sum(float(z.sum()) for z in got) > 0, "recurrent: silent")
+    for z, o, c in zip(got, oracle, cpu.run(x)):
+        require(np.array_equal(z, o), "recurrent: run_device differs from run_graph_reference")
+        require(np.array_equal(z, c), "recurrent: card and CPU differ")
+    for z, c in zip(masked, cpu.run(x, valid_steps=valid)):
+        require(np.array_equal(z, c), "recurrent: masked card and CPU differ")
+    print(f"recurrent: back-edges {sorted(net.back_edges)} through run_device on "
+          f"the card: bit-identical to run_graph_reference and to the CPU (masked "
+          f"too); launches {counts}")
 
 
 # -- the routes the fused entry points replaced, timed beside them ------------------
@@ -751,24 +930,89 @@ def old_project(wdm, col_source, col_delay, x_hist, t):
     return spike_wdm_matmul(wdm, stacked).to(torch.float32)
 
 
-def old_parallel_project(wdm, col_source, col_delay, x_hist, x_t, t):
-    i_t = old_project(wdm, col_source, col_delay, x_hist, t)
-    x_hist[:, t % x_hist.shape[1]] = x_t.to(torch.int8)
-    return x_hist, i_t
+def old_scan_network(plan, metas, forms, params, states, spikes,
+                     valid_steps=None):
+    """The loop the population step replaced (the executor's before it):
+    each serial edge's whole projection (update, roll into the ring, copy
+    out and zero the current slot), the currents summed with torch adds,
+    the int8 carry cast to f32, the standalone K1, the casts back, the copy
+    into the output train, and an int8 feedback ring written each step."""
+    from repro_torch.core.runtime import executor
+    from repro_torch.core.runtime.parallel_runtime import parallel_project
+    from repro_torch.core.runtime.serial_runtime import (
+        serial_project, serial_project_dense, serial_project_sparse,
+    )
+    from repro_torch.kernels.lif_update import lif_update
+
+    project = {"event": serial_project, "sparse": serial_project_sparse,
+               "dense": serial_project_dense}
+    T, batch = spikes.shape[0], spikes.shape[1]
+    live = executor._live_mask(spikes, valid_steps)
+    if live is not None:
+        spikes = spikes * live
+    proj_states, pop_v, pop_z = states
+    feedback = [torch.zeros((batch, plan.pop_sizes[s]), dtype=torch.int8,
+                            device=spikes.device) for s in plan.back_sources]
+    vz_slot = {p: k for k, p in enumerate(plan.update_order)}
+    fb_slot = {s: k for k, s in enumerate(plan.back_sources)}
+    outs = [torch.empty((T, batch, plan.pop_sizes[p]), dtype=torch.float32,
+                        device=spikes.device) for p in plan.update_order]
+    full_input = tuple(plan.input_slices) == ((0, spikes.shape[2]),)
+    for t in range(T):
+        x_t = spikes[t]
+        pop_out = [None] * len(plan.pop_sizes)
+        for p, (a, b) in zip(plan.input_pops, plan.input_slices):
+            pop_out[p] = x_t if full_input else x_t[:, a:b]
+        for p in plan.update_order:
+            k = vz_slot[p]
+            i_nb = None
+            for ei in plan.in_edges[p]:
+                meta = metas[ei]
+                x = (feedback[fb_slot[plan.proj_src[ei]]].to(torch.float32)
+                     if plan.proj_back[ei] else pop_out[plan.proj_src[ei]])
+                if meta.paradigm == "serial":
+                    _, i_e = project[forms[ei]](
+                        *params[ei], proj_states[ei], x, t,
+                        delay_range=meta.delay_range, n_target=meta.n_target)
+                else:
+                    _, i_e = parallel_project(*params[ei], proj_states[ei], x, t)
+                i_nb = i_e if i_nb is None else i_nb + i_e
+            v_new, z_new = lif_update(i_nb, pop_v[k], pop_z[k].to(torch.float32),
+                                      alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p])
+            pop_v[k], pop_z[k] = v_new, z_new.to(torch.int8)
+            outs[k][t] = z_new
+            pop_out[p] = z_new
+        for j, s in enumerate(plan.back_sources):
+            feedback[j] = pop_out[s].to(torch.int8)
+    if live is not None:
+        outs = [z * live for z in outs]
+    return outs
 
 
 @contextlib.contextmanager
-def old_routes():
-    """The executor runs the replaced routes while inside."""
-    from repro_torch.core.runtime import executor, temporal_runtime
+def old_population_route():
+    """run_device runs the population route lif_step replaced while inside."""
+    from repro_torch.core.runtime import executor
 
-    saved = executor.parallel_project, temporal_runtime.lif_fixed_point
-    executor.parallel_project = old_parallel_project
+    saved = executor._scan_network
+    executor._scan_network = old_scan_network
+    try:
+        yield
+    finally:
+        executor._scan_network = saved
+
+
+@contextlib.contextmanager
+def old_fixed_point_route():
+    """run_temporal runs the per-pass loop the fused K4 replaced while inside."""
+    from repro_torch.core.runtime import temporal_runtime
+
+    saved = temporal_runtime.lif_fixed_point
     temporal_runtime.lif_fixed_point = old_fixed_point
     try:
         yield
     finally:
-        executor.parallel_project, temporal_runtime.lif_fixed_point = saved
+        temporal_runtime.lif_fixed_point = saved
 
 
 def column_passes(i_flat, *, alpha, v_th, cap):
@@ -869,7 +1113,7 @@ def time_temporal(net, name, rep, batch, card):
         return exe.run_temporal(xs, valid_steps=vs_t)
 
     def temporal_old():
-        with old_routes():
+        with old_fixed_point_route():
             return exe.run_temporal(xs, valid_steps=vs_t)
 
     require(same_replies(temporal(), temporal_old()),
@@ -901,40 +1145,95 @@ def time_temporal(net, name, rep, batch, card):
     print(f"temporal profile [{card}]: {name}: top: {top}")
 
 
-def time_serving(net, name, rep, batch, card):
-    """One served micro-batch through run_device with the fused K2 beside
-    the old gather route, in the same run: host time per launch (ends in a
-    sync), the same launch's device time (captured once as a CUDA graph
-    and replayed, so no host time is in it), and the device kernels that
-    make it up."""
+def launch_pair(net, rep, batch, steps=None):
+    """run_device of one micro-batch (cut to its first ``steps`` steps when
+    given) through the population step, and through the route it replaced."""
     from repro_torch.core.runtime import network_executable
 
     exe = network_executable(net, rep)
     x, vs = batch
-    xs = torch.as_tensor(x, device="cuda")
-    vs_t = torch.as_tensor(vs, device="cuda")
+    xs = torch.as_tensor(x[:steps], device="cuda")
+    vs_t = torch.as_tensor(np.minimum(vs, xs.shape[0]), device="cuda")
 
     def launch():
         return exe.run_device(xs, valid_steps=vs_t)
 
     def launch_old():
-        with old_routes():
+        with old_population_route():
             return exe.run_device(xs, valid_steps=vs_t)
 
+    return launch, launch_old
+
+
+def step_ops(net, name, rep, batch):
+    """Device operations a step of run_device, from the profiler at two
+    train lengths (their difference over the steps between them, so the
+    launch's constant part drops out), for the population-step route and
+    the one it replaced.  The profiler can drop activity records but never
+    adds any, so each count is the largest of three profiles.  A step must
+    be its projections' operations (the fused K2 and the ring copy a
+    parallel edge, K3 a sparse serial edge) and one lif_step a population;
+    a launch waits for the card nowhere."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    steps = batch[0].shape[0]
+    half = steps // 2
+    n_pops = len(net.layer_sizes) - 1
+    want = n_pops + sum(2 if l.paradigm == "parallel" else 1 for l in rep.layers)
+    launches, ops = {}, {}
+    for route in (0, 1):
+        full = launch_pair(net, rep, batch)[route]
+        short = launch_pair(net, rep, batch, half)[route]
+        n_full, n_short = (max(profiled_ms(fn)[1] for _ in range(3))
+                           for fn in (full, short))
+        ops[route] = (n_full - n_short) / (steps - half)
+        launches[route] = n_full
+    launch = launch_pair(net, rep, batch)[0]
+    reset_launch_counts()
+    launch()
+    counts = launch_counts()
+    waits = sync_count(launch)
+    require(counts["lif_step"] == steps * n_pops and counts["lif_update"] == 0,
+            f"serve {name}: {counts['lif_step']} lif_step launches for {steps} "
+            f"steps of {n_pops} populations")
+    require(ops[0] == want, f"serve {name}: {ops[0]} device operations a step, "
+            f"want {want}")
+    require(waits == 0, f"serve {name}: run_device waits for the card {waits} times")
+    require(launches[0] < launches[1],
+            f"serve {name}: {launches[0]} device launches a launch, old route "
+            f"{launches[1]}")
+    print(f"serve: {name:10s} device operations a step {ops[0]:g} (projections "
+          f"{want - n_pops}, lif_step {n_pops}), old route {ops[1]:g}; device "
+          f"launches a run_device launch of {steps} steps {launches[0]} (constant "
+          f"{launches[0] - ops[0] * steps:g}), old route {launches[1]}; lif_step "
+          f"launches {counts['lif_step']}, "
+          f"lif_update {counts['lif_update']}, host waits {waits}")
+
+
+def time_serving(net, name, rep, batch, card):
+    """One served micro-batch through run_device with the population step
+    beside the route it replaced, in the same run: host time per launch
+    (ends in a sync; in turns new, old, old, new), the same launch's device
+    time (captured once as a CUDA graph and replayed, so no host time is in
+    it), and the device kernels that make it up."""
+    launch, launch_old = launch_pair(net, rep, batch)
+    x, vs = batch
     require(same_replies(launch(), launch_old()),
-            f"serve {name}: the fused and the old route differ")
-    require(sync_count(launch) == 0, f"serve {name}: run_device waits for the card")
+            f"serve {name}: the population step and the old route differ")
     dt, (dt_a, dt_b), do, (do_a, do_b) = in_turns(launch, launch_old)
-    dev = device_ms(launch, iters=1, replays=10)
-    dev_old = device_ms(launch_old, iters=1, replays=10)
+    # device time in turns too, new, old, old, new
+    devs = [device_ms(fn, iters=1, replays=20)
+            for fn in (launch, launch_old, launch_old, launch)]
+    dev, dev_old = (devs[0] + devs[3]) / 2, (devs[1] + devs[2]) / 2
     steps = x.shape[0]
     print(f"serve timing [{card}]: {name} micro-batch of {len(vs)} "
-          f"({steps} steps): fused route {dt:.3f} ms per launch ({dt_a:.3f}, "
+          f"({steps} steps): population step {dt:.3f} ms per launch ({dt_a:.3f}, "
           f"{dt_b:.3f}), {dt / steps * 1e3:.1f} us per step, "
           f"{int(vs.sum()) / dt * 1e3:,.0f} request-steps/s, device "
-          f"{dev:.3f} ms, busy share {dev / dt:.3f}; old route {do:.3f} ms "
-          f"({do_a:.3f}, {do_b:.3f}), {do / steps * 1e3:.1f} us per step, device "
-          f"{dev_old:.3f} ms, busy share {dev_old / do:.3f}; host time "
+          f"{dev:.3f} ms ({devs[0]:.3f}, {devs[3]:.3f}), busy share {dev / dt:.3f}; "
+          f"old route {do:.3f} ms ({do_a:.3f}, {do_b:.3f}), {do / steps * 1e3:.1f} "
+          f"us per step, device {dev_old:.3f} ms ({devs[1]:.3f}, {devs[2]:.3f}), "
+          f"busy share {dev_old / do:.3f}; host time "
           f"{100 * (dt / do - 1):+.1f}%")
     total, n, top = profiled_ms(launch)
     total_o, n_o, _ = profiled_ms(launch_old)
@@ -1107,13 +1406,21 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
         lif_fixed_point, lif_fixed_point_launch, lif_fixed_point_ref,
         lif_parallel_scan, lif_parallel_scan_ref,
     )
-    from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+    from repro_torch.kernels.lif_update import (
+        RingEdge, empty_launch, lif_step, lif_step_ref, lif_update, lif_update_ref,
+    )
     from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
     from repro_torch.kernels.spike_wdm_matmul import (
         spike_wdm_matmul, spike_wdm_matmul_ref, spike_wdm_project,
         spike_wdm_project_ref,
     )
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+
+    # the card's floor for any launch: a kernel that does nothing, replayed
+    # from a CUDA graph like every time below
+    floor = device_ms(empty_launch)
+    print(f"kernel timing [{card}]: launch floor (an empty kernel, "
+          f"graph-replayed) {floor:.5f} ms")
 
     def timed(kernel, plain, library, n_bytes, n_ops, ops_rate, plain_iters=100,
               plain_reads_host=False):
@@ -1188,6 +1495,30 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
             lambda: lif_update_ref(i, v, z, alpha=0.9, v_th=1.0),
             None, 20 * n, 5 * n, F32_OPS_S,
         )
+
+    def step_row(kinds, batch, n, d_slots, seed):
+        # bytes a (b, n) element: 4 a current edge; a ring edge reads one
+        # update a slot and reads and writes each slot once, the current
+        # one written as 0 (12 d_slots); v read and written (8), z (2), the
+        # spike row written (4).  Operations: the ring adds, the sum and the
+        # fire's 5
+        ops = step_inputs(kinds, batch, n, d_slots, 5, seed, 0.5)
+        edges, v, z, out, v_th = ops
+        plain = clone_step(ops)
+        rings = [e.ring.shape[0] for e in edges if isinstance(e, RingEdge)]
+        per = 4 * (len(edges) - len(rings)) + 12 * sum(rings) + 14
+        flops = sum(rings) + len(edges) - 1 + 5
+        t = timed(
+            lambda: lif_step(edges, v, z, out, 5, alpha=0.5, v_th=v_th),
+            lambda: lif_step_ref(*plain[:4], 5, alpha=0.5, v_th=v_th),
+            None, per * batch * n, flops * batch * n, F32_OPS_S,
+        )
+        t["launch_floor_ms"] = floor
+        print(f"kernel timing [{card}]: lif_step with edges {kinds} at (B, N) "
+              f"{(batch, n)}, d_slots {d_slots}: device {t['ms']:.5f} ms, "
+              f"{t['ms'] / floor:.2f}x the launch floor {floor:.5f} ms; bound "
+              f"{t['bound_ms']:.7f} ms ({per} bytes an element)")
+        return t
 
     def wdm_row(m, k, n, seed):
         a, x = wdm_inputs(m, k, n, seed)
@@ -1313,6 +1644,12 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
 
     extra = {
         "lif_update": [((1024, 128), 1)],
+        # the classifier report's hidden population (a parallel current),
+        # the output population (a sparse ring), the scaffold's widest
+        # population with the Purkinje in-degree
+        "lif_step": [(("current",), MICRO_BATCH, 20, 2, 1),
+                     (("sparse",), MICRO_BATCH, 4, 2, 2),
+                     (("current", "sparse", "event"), 64, 80_000, 2, 3)],
         "spike_wdm_matmul": [(512, 2048, 128, 1)],
         "spike_wdm_project": [(*project_inputs(20, 965, 8, 4, 2048, 1), 6)],
         "sparse_gather": [tuple(ell_inputs(4096, 32, 2048, 8, 1)), temporal_gather],
@@ -1322,7 +1659,7 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
                                 alpha=0.5, v_th=64.0, cap=513))],
         "ssd_chunk": [((1, 256, 24, 64, 128, 1), 1), ((16, 256, 24, 64, 128, 24), 1)],
     }
-    fns = {"lif_update": lif_row, "spike_wdm_matmul": wdm_row,
+    fns = {"lif_update": lif_row, "lif_step": step_row, "spike_wdm_matmul": wdm_row,
            "spike_wdm_project": project_row, "sparse_gather": gather_row,
            "lif_parallel_scan": scan_row, "lif_fixed_point": fixed_point_row,
            "ssd_chunk": ssd_row}
@@ -1336,16 +1673,27 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": err[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
+                                 "library_ms", "launch_floor_ms") if k in t},
         })
         for args in extra[name]:
             show(name, path_desc(name, args), fn(*args))
     val, idx, x = path["sparse_gather"]
     temporal_layouts(val, idx, x.shape[0], temporal_steps)
+    # the fixed point past the spike words' shared-memory limit
+    long = long_train(60_000, 40, 40).cuda()
+    kw = dict(alpha=0.9, v_th=64.0, cap=60_001)
+    passes = lif_fixed_point(long, **kw)[1]
+    ms = device_ms(lambda: lif_fixed_point_launch(long, **kw), iters=3, replays=3)
+    chain = passes * 60_000 * CHAIN_CYCLES / sm_clock_hz() * 1e3
+    print(f"kernel timing [{card}]: lif_fixed_point at (60000, 40), alpha 0.9, "
+          f"spike words in device memory, {passes} passes: device {ms:.5f} ms; "
+          f"chain floor {passes} x 60000 x {CHAIN_CYCLES} cycles = {chain:.5f} ms")
     return rows
 
 
 def path_desc(name, args):
+    if name == "lif_step":
+        return f"edges {args[0]}, (B, N) {args[1:3]}, d_slots {args[3]}"
     if name == "lif_fixed_point":
         return f"{tuple(args[0].shape)}, cap {args[1]['cap']}"
     if name == "spike_wdm_project":
@@ -1364,10 +1712,17 @@ def path_shapes(net, reports, batch):
     """The kernels' shapes on the served path, from the executables."""
     from repro_torch.core.runtime import network_executable
 
-    lif, wdm, ell, par = set(), set(), [], []
+    lif, wdm, ell, par, step = set(), set(), [], [], set()
+    kind = {"-": "current", "sparse": "sparse", "dense": "dense", "event": "event"}
     for rep in reports.values():
         exe = network_executable(net, rep)
         forms = exe.serial_forms(batch)
+        for p in exe.plan.update_order:     # each population's step
+            edges = exe.plan.in_edges[p]
+            step.add((tuple(kind[forms[i]] for i in edges), batch,
+                      exe.plan.pop_sizes[p],
+                      max([exe.metas[i].delay_range + 1 for i in edges
+                           if forms[i] != "-"], default=2)))
         for i, (meta, form) in enumerate(zip(exe.metas, forms)):
             lif.add((batch, meta.n_target))
             if meta.paradigm == "parallel":
@@ -1378,7 +1733,7 @@ def path_shapes(net, reports, batch):
             elif form == "sparse":
                 val, idx = exe._sparse_param(i)
                 ell.append((val, idx, meta.n_source))
-    return sorted(lif), sorted(wdm), ell, par
+    return sorted(lif), sorted(wdm), ell, par, sorted(step)
 
 
 def main() -> int:
@@ -1390,13 +1745,17 @@ def main() -> int:
     from repro_torch.kernels import (
         KERNEL_OPS, build_kernels, launch_counts, reset_launch_counts,
     )
-    from repro_torch.kernels.lif_parallel_scan import lif_fixed_point, staged_steps_limit
+    from repro_torch.kernels.lif_parallel_scan import (
+        lif_fixed_point, shared_words_limit, staged_steps_limit,
+    )
+    from repro_torch.kernels.lif_update import MAX_EDGES
 
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    require(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
 
     # 1. build
     t0 = time.perf_counter()
@@ -1404,16 +1763,32 @@ def main() -> int:
     print(f"build: {len(KERNEL_OPS)} kernel sources ({len(REPLACES)} entry points) "
           f"built or found in {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels import _build
-    for name in ("spike_wdm_matmul", "sparse_gather", "lif_parallel_scan", "ssd_chunk"):
+    for name in KERNEL_OPS:
         report = _build.ptxas_report(name)
         require(bool(report), f"no ptxas report for {name}")
         for kernel, usage in report:
             print(f"ptxas: {name}: {kernel}: {usage}")
     fixed = {
         "lif_update": [(256, 128), (300, 36), (1, 1), (1000, 3), (1024, 128)],
+        # (in-edge kinds, B, N, d_slots): each kind alone at the path's
+        # widths and batches (1 and 8), eight edges (one launch), nine
+        # rings and 17 edges (launches chained), the scaffold's widest
+        # population with the Purkinje in-degree, the smallest
+        "lif_step": [(("current",), 8, 20, 2), (("sparse",), 8, 20, 2),
+                     (("dense",), 8, 4, 3), (("event",), 1, 20, 2),
+                     (("sparse", "event", "dense", "current", "sparse", "current",
+                       "event", "dense"), 8, 20, 3),
+                     (("sparse",) * 9, 8, 20, 3),
+                     (("event", "current", "dense", "sparse") * 4 + ("current",),
+                      8, 20, 3),
+                     (("sparse", "event"), 8, 20, 20),      # past 16 slots
+                     (("current", "sparse", "event"), 64, 80_000, 2),
+                     (("current", "sparse"), 1, 1, 1)],
+        # (M, K, N): the reference's shapes, the benchmark's, and a batch
+        # past 65,535 lanes
         "spike_wdm_matmul": [(4, 16, 1), (128, 128, 128), (128, 512, 128),
                              (300, 700, 36), (1, 1, 1), (257, 1025, 129),
-                             (512, 2048, 128)],
+                             (512, 2048, 128), (5, 40, 70_000)],
         # (R, L, S, B[, layout]): the reference's shapes, then both designs
         # (B <= 32, B > 32) on ragged rows with strided spikes
         "sparse_gather": [(4096, 32, 2048, 8), (3000, 17, 500, 3), (1, 1, 1, 1),
@@ -1421,14 +1796,17 @@ def main() -> int:
                           (40, 78, 2048, 33, "transposed"), (40, 78, 2048, 600),
                           (40, 78, 2048, 600, "transposed"), (1000, 5, 300, 3, "sliced")],
         "lif_parallel_scan": [(75, 160), (75, 32), (300, 130), (512, 512), (1, 1)],
-        # (T, F): the gesture path's two populations, a longer train, and
-        # (None) one longer than the shared-memory staging limit
-        "lif_fixed_point": [(75, 160), (75, 32), (512, 64), (None, 40), (1, 1)],
+        # (T, F): the gesture path's two populations, a longer train,
+        # (None) one longer than the shared-memory staging limit, and
+        # ("long") T = 60,000, past the spike words' shared-memory limit
+        "lif_fixed_point": [(75, 160), (75, 32), (512, 64), (None, 40), (1, 1),
+                            ("long", 32), ("long", 40)],
         # (M, K, B, d, S): the gesture path's parallel edge (d 1), rings of
-        # depth 4 and 3, a K above the kernel's 1 KB staging tile
+        # depth 4 and 3, a K above the kernel's 1 KB staging tile, a batch
+        # past 65,535 lanes
         "spike_wdm_project": [(20, 965, 8, 1, 2048), (20, 965, 8, 4, 2048),
                               (33, 9000, 5, 4, 3000), (300, 700, 36, 3, 500),
-                              (1, 1, 1, 1, 1)],
+                              (1, 1, 1, 1, 1), (5, 40, 70_000, 2, 30)],
         # (G, Q, H, P, N[, Hg]): tests/test_kernels.py::TestSSDChunk's
         # shapes, mamba2-130m's prefill path (batch 4 x 4 chunks) per head
         # and with its one group of B and C, ragged edges per head and per
@@ -1445,7 +1823,14 @@ def main() -> int:
           f"{list(SCAN_ALPHAS)}; the fused fixed point bitwise, passes and "
           f"residual equal, at alpha in {list(FP_ALPHAS)} with caps "
           f"{list(FP_CAPS)}, staged up to T = "
-          f"{staged_steps_limit(torch.device('cuda'))}; the projection with its "
+          f"{staged_steps_limit(torch.device('cuda'))}, spike words in shared "
+          f"memory up to T = {shared_words_limit(torch.device('cuda'))} and in "
+          "device memory at T = 60,000 (passes <= 4, against the plain version "
+          "on a CPU copy); lif_step bitwise on v, z, the spike row and every "
+          f"ring for edge kinds {list(EDGE_KINDS)} and up to 17 in-edges (chained "
+          f"launches past {MAX_EDGES}) at alpha 0.5 and 0.9, max "
+          f"|diff| {err['lif_step']}; both WDM entries exact at a batch of "
+          "70,000; the projection with its "
           "ring gather bitwise over t past the ring depth; the SSD block within rtol = atol = 1e-4, "
           f"max |diff| {err['ssd_chunk']:.3e}, at most {err['ssd_chunk/tol']:.3f} of "
           "the tolerance)")
@@ -1455,14 +1840,14 @@ def main() -> int:
     reports, clf = compile_reports(net)
     reqs = make_requests()
     batches = [micro_batch(reqs[:MICRO_BATCH]), micro_batch(reqs[MICRO_BATCH:])]
-    lif_s, wdm_s, ell_s, par_s = path_shapes(net, reports, MICRO_BATCH)
+    lif_s, wdm_s, ell_s, par_s, step_s = path_shapes(net, reports, MICRO_BATCH)
     # the temporal path scans (T, B*N) per population and gathers T*B columns
     scan_s = sorted({(x.shape[0], MICRO_BATCH * n)
                      for x, _ in batches for n in net.layer_sizes[1:]})
-    print(f"compile: path shapes: lif {lif_s}, wdm {wdm_s}, ell "
+    print(f"compile: path shapes: lif_step {step_s}, lif {lif_s}, wdm {wdm_s}, ell "
           f"{[(tuple(v.shape), s) for v, _, s in ell_s]}, scan {scan_s}")
     path_err = check_kernels({
-        "lif_update": lif_s, "spike_wdm_matmul": wdm_s,
+        "lif_update": lif_s, "lif_step": step_s, "spike_wdm_matmul": wdm_s,
         # the fused step hands its (B, S) spikes over as the view x_t.t()
         "sparse_gather": [(v.shape[0], v.shape[1], s, MICRO_BATCH, "transposed")
                           for v, _, s in ell_s],
@@ -1508,10 +1893,12 @@ def main() -> int:
     served = serve_main_path(net, reports, batches)
     counts = launch_counts()
     print(f"serve: launches on the served path: {counts}")
-    for name in ("lif_update", "spike_wdm_project", "sparse_gather"):
+    for name in ("lif_step", "spike_wdm_project", "sparse_gather"):
         require(counts[name] > 0, f"{name} was never launched on the served path")
     hold_replies(net, reports, batches, served, oracles)
     parallel_edge_ops(par_s[0], rings[0])
+    for name, rep in reports.items():
+        step_ops(net, name, rep, batches[0])
 
     # 4. serve, temporal: the second path, counts read around it alone
     reset_launch_counts()
@@ -1532,6 +1919,7 @@ def main() -> int:
     # 5. the exact reset modes, 6. the step-serial block
     exact_modes(clf, batches)
     hybrid_block()
+    recurrent_device()
 
     # 7. serve mamba2-130m: f32 against the CPU (K5 counted around it), bf16 timed
     cfg32, host32, steps32, greedy32, ssd_launches = serve_mamba2_f32()
@@ -1545,6 +1933,8 @@ def main() -> int:
     ga_val, ga_idx, ga_s = gather_args
     path = {
         "lif_update": ((MICRO_BATCH, max(n for _, n in lif_s)), 0),
+        # the serial report's hidden population: one sparse ring edge
+        "lif_step": (("sparse",), MICRO_BATCH, max(n for _, n in lif_s), 2, 0),
         "spike_wdm_matmul": (*max(wdm_s, key=lambda s: s[0] * s[1]), 0),
         # the fused step's spikes: the view x_t.t() of a (B, S) matrix
         "sparse_gather": (

@@ -17,6 +17,9 @@ from .serial_runtime import (
     serial_step,
     serial_step_dense,
     serial_step_sparse,
+    serial_update,
+    serial_update_dense,
+    serial_update_sparse,
     sparse_serial_operands,
 )
 from .parallel_runtime import (
@@ -62,6 +65,7 @@ __all__ = [
     "SerialExecutable", "lower_serial", "run_serial",
     "serial_project", "serial_project_dense", "serial_project_sparse",
     "serial_step", "serial_step_dense", "serial_step_sparse",
+    "serial_update", "serial_update_dense", "serial_update_sparse",
     "dense_serial_weights", "sparse_serial_operands",
     "ParallelExecutable", "lower_parallel", "parallel_project",
     "parallel_step", "run_parallel",

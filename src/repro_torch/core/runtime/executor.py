@@ -16,26 +16,29 @@ structure on the CUDA card:
   (:func:`_scan_network`; the reference's ``jax.lax.scan``).  Within a
   timestep, forward projections cascade in the graph's topological
   order; **back-edges** (self-loops and projections onto earlier
-  populations) read their source population's spikes from a
-  one-step-delayed **feedback ring**, so a spike crossing a back-edge of
-  synaptic delay ``d`` arrives ``d + 1`` steps after emission.
+  populations) read their source population's spikes of the previous
+  timestep (one-step-delayed feedback: the previous row of its output
+  train), so a spike crossing a back-edge of synaptic delay ``d`` arrives
+  ``d + 1`` steps after emission.
 
-Each projection contributes a *synaptic current* through its paradigm's
-machinery (:func:`~repro_torch.core.runtime.serial_runtime.serial_project`
-and its sparse/dense forms, or
-:func:`~repro_torch.core.runtime.parallel_runtime.parallel_project`); a
-population sums the currents of all its in-projections and runs ONE fused
-LIF update (:func:`repro_torch.kernels.lif_update`).  All weights are
-int8-magnitude integers, so the sums are exact in float32 and converging
-projections stay bit-exact.
+Each projection runs its paradigm's projection half: a parallel edge its
+whole current
+(:func:`~repro_torch.core.runtime.parallel_runtime.parallel_project`), a
+serial edge the update half of its form
+(:func:`~repro_torch.core.runtime.serial_runtime.serial_update` and its
+sparse/dense twins).  Then ONE population step
+(:func:`repro_torch.kernels.lif_update.lif_step`, a single launch on the
+card) delivers the serial edges' updates through their delay rings, sums
+all in-edge currents, fires, and writes the carry and the step's row of
+the output train.  All weights are int8-magnitude integers, so the sums
+are exact in float32 and converging projections stay bit-exact.
 
 Layout: everything the loop carries is batch-major, ``(B, n)`` — membrane
-potentials, int8 previous spikes, the int8 feedback ring and the
-parallel projections' int8 history rings — so the LIF kernel and the
-matmul kernel read and write contiguous buffers with no transposes.  The
-serial delay rings are ``(d_slots, B, n_target)`` f32, as in the
-reference.  Spike state crossing timesteps is int8 (spikes are exactly
-0/1, so the casts are exact).
+potentials, int8 previous spikes and the parallel projections' int8
+history rings — so the kernels read and write contiguous buffers with no
+transposes.  The serial delay rings are ``(d_slots, B, n_target)`` f32, as
+in the reference.  Spike state crossing timesteps is int8 (spikes are
+exactly 0/1, so the casts are exact).
 
 The timestep ``t`` is a host integer and nothing in the loop reads a
 device value back: a launch enqueues its whole T-step run, and the
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from ...kernels.lif_update import lif_update
+from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
 from ..layer import LIFParams, SNNNetwork
 from ..parallel_compiler import ParallelProgram
@@ -73,9 +76,9 @@ from .serial_runtime import (
     SerialExecutable,
     dense_serial_weights,
     lower_serial,
-    serial_project,
-    serial_project_dense,
-    serial_project_sparse,
+    serial_update,
+    serial_update_dense,
+    serial_update_sparse,
     sparse_serial_operands,
 )
 from .temporal_runtime import (
@@ -157,7 +160,7 @@ class GraphPlan:
     proj_src: Tuple[int, ...]             # per projection: source pop
     proj_tgt: Tuple[int, ...]             # per projection: target pop
     proj_back: Tuple[bool, ...]           # per projection: back-edge?
-    back_sources: Tuple[int, ...]         # pops carried in the feedback ring
+    back_sources: Tuple[int, ...]         # pops read one step late
 
 
 def _graph_plan(net: SNNNetwork) -> GraphPlan:
@@ -219,9 +222,9 @@ def _layer_params(exe) -> Tuple[torch.Tensor, ...]:
 def _init_graph_carry(
     plan: GraphPlan, metas: Tuple[LayerMeta, ...], batch: int, device
 ):
-    """Fresh zero loop state: per-projection rings, per-population LIF
-    state, and the back-edge feedback ring.  The loop updates these
-    buffers in place, so every launch builds its own."""
+    """Fresh zero loop state: per-projection rings and per-population LIF
+    state.  The loop updates these buffers in place, so every launch
+    builds its own."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     proj = [
         zeros((m.delay_range + 1, batch, m.n_target), torch.float32)
@@ -240,17 +243,13 @@ def _init_graph_carry(
         zeros((batch, plan.pop_sizes[p]), torch.int8)
         for p in plan.update_order
     ]
-    feedback = [
-        zeros((batch, plan.pop_sizes[s]), torch.int8)
-        for s in plan.back_sources
-    ]
-    return proj, pop_v, pop_z, feedback
+    return proj, pop_v, pop_z
 
 
-_SERIAL_FORMS = {
-    "event": serial_project,
-    "sparse": serial_project_sparse,
-    "dense": serial_project_dense,
+_SERIAL_UPDATES = {
+    "event": serial_update,
+    "sparse": serial_update_sparse,
+    "dense": serial_update_dense,
 }
 
 
@@ -287,9 +286,8 @@ def _scan_network(
     if live is not None:
         spikes = spikes * live
 
-    proj_states, pop_v, pop_z, feedback = states
+    proj_states, pop_v, pop_z = states
     vz_slot = {p: k for k, p in enumerate(plan.update_order)}
-    fb_slot = {s: k for k, s in enumerate(plan.back_sources)}
     outs = [
         torch.empty(
             (T, batch, plan.pop_sizes[p]), dtype=torch.float32,
@@ -298,6 +296,16 @@ def _scan_network(
         for p in plan.update_order
     ]
     full_input = tuple(plan.input_slices) == ((0, spikes.shape[2]),)
+    # back-edges read their source's spikes of the step before: the
+    # previous step's pop_out, whose rows stay as they are (an output row
+    # is written once, and the input train is read-only); at t = 0 the
+    # spikes before the train, zeros
+    prev_out = [None] * len(plan.pop_sizes)
+    for s in plan.back_sources:
+        prev_out[s] = torch.zeros(
+            (batch, plan.pop_sizes[s]), dtype=torch.float32,
+            device=spikes.device,
+        )
     for t in range(T):
         x_t = spikes[t]
         pop_out = [None] * len(plan.pop_sizes)
@@ -305,39 +313,28 @@ def _scan_network(
             pop_out[p] = x_t if full_input else x_t[:, a:b]
         for p in plan.update_order:
             k = vz_slot[p]
-            i_nb = None               # summed current, (B, n_target)
+            edges = []
             for ei in plan.in_edges[p]:
                 meta = metas[ei]
-                # back-edges read the source's spikes from the previous
-                # timestep (int8 feedback ring; the f32 cast of 0/1 spikes
-                # is exact); forward edges cascade within the step
-                x = (
-                    feedback[fb_slot[plan.proj_src[ei]]].to(torch.float32)
-                    if plan.proj_back[ei]
-                    else pop_out[plan.proj_src[ei]]
-                )
+                src = plan.proj_src[ei]
+                x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
                 if meta.paradigm == "serial":
-                    _, i_e = _SERIAL_FORMS[forms[ei]](
-                        *params[ei], proj_states[ei], x, t,
+                    upd, shift = _SERIAL_UPDATES[forms[ei]](
+                        *params[ei], x, t,
                         delay_range=meta.delay_range, n_target=meta.n_target,
                     )
+                    edges.append(RingEdge(proj_states[ei], upd, shift))
                 else:
                     _, i_e = parallel_project(
                         *params[ei], proj_states[ei], x, t
                     )
-                i_nb = i_e if i_nb is None else i_nb + i_e
-            v_new, z_new = lif_update(
-                i_nb, pop_v[k], pop_z[k].to(torch.float32),
+                    edges.append(CurrentEdge(i_e))
+            # delivery, sum, fire, int8 carry and f32 spike row: one launch
+            pop_out[p] = lif_step(
+                edges, pop_v[k], pop_z[k], outs[k][t], t,
                 alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
             )
-            # previous-spike state crosses the timestep as int8 (exact:
-            # spikes are 0/1); the f32 train is what the step emits and
-            # what same-step forward projections consume
-            pop_v[k], pop_z[k] = v_new, z_new.to(torch.int8)
-            outs[k][t] = z_new
-            pop_out[p] = z_new
-        for j, s in enumerate(plan.back_sources):
-            feedback[j] = pop_out[s].to(torch.int8)
+        prev_out = pop_out
     if live is not None:
         outs = [z * live for z in outs]
     return outs

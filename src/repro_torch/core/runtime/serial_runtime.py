@@ -29,6 +29,16 @@ Every form is bit-identical on the spike trains, so which one runs is a
 throughput decision (:meth:`SerialBatchCostModel.choose_form
 <repro_torch.core.cost_model.SerialBatchCostModel.choose_form>`).
 
+Each form is two halves.  The *update half* (``serial_update``,
+``serial_update_dense``, ``serial_update_sparse``) turns the step's spikes
+into a ``(d_slots, B, n_target)`` update and the shift that lands its slot
+``d`` in ring slot ``(d + shift) mod d_slots``.  The *delivery*
+(:func:`~repro_torch.kernels.lif_update.ring_deliver_ref`) adds it into the
+delay ring and takes out the current slot.  The fused executor runs only
+the update halves and hands the delivery to the population step
+(:func:`repro_torch.kernels.lif_update.lif_step`), one launch for all of a
+population's in-edges; ``serial_project*`` run both halves.
+
 Unlike the reference's functional updates, the ring is updated **in
 place**: each ``serial_project*`` adds into ``ring``, copies out the
 current slot (``clone`` — the slot is zeroed in place right after) and
@@ -43,7 +53,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from ...kernels.lif_update import lif_update
+from ...kernels.lif_update import lif_update, ring_deliver_ref
 from ...kernels.sparse_gather import sparse_gather
 from ..layer import LIFParams, SNNLayer
 from ..serial_compiler import SerialProgram, compile_serial, unpack_rows
@@ -106,29 +116,19 @@ def lower_serial(
     )
 
 
-def _consume(ring: torch.Tensor, t: int) -> torch.Tensor:
-    """Copy out ring slot ``t % d_slots`` and zero it in place."""
-    slot = t % ring.shape[0]
-    i_t = ring[slot].clone()
-    ring[slot] = 0.0
-    return i_t
-
-
-def serial_project(
+def serial_update(
     exe_weight, exe_delay, exe_src, exe_tgt,
-    ring: torch.Tensor,   # (d_slots, B, n_target) f32 future input currents
     x_t: torch.Tensor,    # (B, S) f32
     t: int,
     *,
     delay_range: int,
     n_target: int,
 ):
-    """Event-form synaptic-current step of ONE projection.
+    """Event form's update half: ``(upd, 0)``, ``upd`` the ``(d_slots, B,
+    n_target)`` view of this step's scattered spikes.
 
-    Scatters this timestep's presynaptic spikes through the delay ring and
-    returns ``(ring, i_t)`` — the ring (updated in place) and the
-    ``(B, n_target)`` input current the target population consumes at
-    ``t``.
+    The segment ids already hold each row's ring slot ``(delay + t) mod
+    d_slots``, so the update lands unshifted.
     """
     d_slots = delay_range + 1
     batch = x_t.shape[0]
@@ -147,8 +147,30 @@ def serial_project(
     updates = torch.zeros(
         batch * d_slots * n_target, dtype=torch.float32, device=x_t.device
     ).index_add_(0, seg_flat, contrib.reshape(-1))
-    ring += updates.view(batch, d_slots, n_target).transpose(0, 1)
-    return ring, _consume(ring, t)
+    return updates.view(batch, d_slots, n_target).transpose(0, 1), 0
+
+
+def serial_project(
+    exe_weight, exe_delay, exe_src, exe_tgt,
+    ring: torch.Tensor,   # (d_slots, B, n_target) f32 future input currents
+    x_t: torch.Tensor,    # (B, S) f32
+    t: int,
+    *,
+    delay_range: int,
+    n_target: int,
+):
+    """Event-form synaptic-current step of ONE projection.
+
+    Scatters this timestep's presynaptic spikes through the delay ring and
+    returns ``(ring, i_t)`` — the ring (updated in place) and the
+    ``(B, n_target)`` input current the target population consumes at
+    ``t``.
+    """
+    upd, shift = serial_update(
+        exe_weight, exe_delay, exe_src, exe_tgt, x_t, t,
+        delay_range=delay_range, n_target=n_target,
+    )
+    return ring, ring_deliver_ref(ring, upd, shift, t)
 
 
 def serial_step(
@@ -191,12 +213,6 @@ def dense_serial_weights(exe: SerialExecutable) -> np.ndarray:
     return w
 
 
-def _roll_in(ring: torch.Tensor, upd: torch.Tensor, t: int) -> torch.Tensor:
-    """``ring += roll(upd, t)`` over the slot axis, then consume slot t."""
-    ring += torch.roll(upd, t % ring.shape[0], 0)
-    return _consume(ring, t)
-
-
 def serial_project_dense(
     w_dense,             # (d_slots, S, T) f32 per-delay-slot weights
     ring: torch.Tensor,  # (d_slots, B, n_target) f32 future input currents
@@ -213,9 +229,23 @@ def serial_project_dense(
     event form's segment ids point.  Delay-0 weights are structurally zero,
     so the current slot is read before anything lands in it.
     """
+    upd, shift = serial_update_dense(
+        w_dense, x_t, t, delay_range=delay_range, n_target=n_target,
+    )
+    return ring, ring_deliver_ref(ring, upd, shift, t)
+
+
+def serial_update_dense(
+    w_dense,             # (d_slots, S, T) f32 per-delay-slot weights
+    x_t: torch.Tensor,   # (B, S)
+    t: int,
+    *,
+    delay_range: int,
+    n_target: int,
+):
+    """Dense form's update half: ``(x_t @ W[d] for every d, t)``."""
     require_full_f32(x_t.device)
-    upd = torch.einsum("bs,dst->dbt", x_t, w_dense)    # (d_slots, B, T)
-    return ring, _roll_in(ring, upd, t)
+    return torch.einsum("bs,dst->dbt", x_t, w_dense), t    # (d_slots, B, T)
 
 
 def serial_step_dense(
@@ -292,10 +322,26 @@ def serial_project_sparse(
     slot ``(t + d) % d_slots``, exactly where the event form's segment ids
     point.
     """
+    upd, shift = serial_update_sparse(
+        ell_val, ell_idx, x_t, t, delay_range=delay_range, n_target=n_target,
+    )
+    return ring, ring_deliver_ref(ring, upd, shift, t)
+
+
+def serial_update_sparse(
+    ell_val,             # (d_slots * T, L) f32 ELL weights
+    ell_idx,             # (d_slots * T, L) i32 ELL source indices
+    x_t: torch.Tensor,   # (B, S)
+    t: int,
+    *,
+    delay_range: int,
+    n_target: int,
+):
+    """Sparse form's update half: one K3 launch; ``(upd, t)``, ``upd`` the
+    ``(d_slots, B, T)`` strided view of the ``(d_slots * T, B)`` gather."""
     d_slots = delay_range + 1
     out = sparse_gather(ell_val, ell_idx, x_t.t())                # (R, B)
-    upd = out.view(d_slots, n_target, -1).permute(0, 2, 1)        # (d, B, T)
-    return ring, _roll_in(ring, upd, t)
+    return out.view(d_slots, n_target, -1).permute(0, 2, 1), t    # (d, B, T)
 
 
 def serial_step_sparse(

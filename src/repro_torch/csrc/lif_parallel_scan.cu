@@ -50,7 +50,10 @@
 //     column contiguous (rows 4 words apart mod 32 banks), so a chunk of
 //     32 steps loads with eight 16-byte loads; above what the opt-in
 //     shared memory holds, the currents are read from device memory on
-//     each pass instead (the spike bits still fit up to ~58k steps);
+//     each pass instead (the spike bits still fit up to ~58k steps), and
+//     above that the spike words too live in device memory, in a scratch
+//     buffer the wrapper allocates (kFeat words of a chunk side by side,
+//     so a warp's loads and stores of them stay coalesced);
 //   - a chunk's 32 steps are unrolled with no branch (the last chunk runs
 //     past the train's end and drops those bits), so the compiler
 //     interleaves the steps' independent work around the chain.
@@ -89,6 +92,11 @@ extern "C" int affine_scan_f32(const float* c, float* v, int64_t steps,
 constexpr int kFeat = 32;                    // features (threads) a block
 constexpr int kChunk = 32;                   // steps one spike word holds
 
+// Where a block keeps its train: currents and spike words in shared memory;
+// spike words only (currents read from device memory each pass); or
+// neither (spike words in a device-memory scratch buffer).
+enum Mode { kAllShared = 0, kWordsShared = 1, kWordsDevice = 2 };
+
 // Floats a staged column holds: the chunks rounded up, plus 4 so that rows
 // are 16-byte aligned and 4 words apart mod 32 banks (conflict-free
 // 16-byte loads).
@@ -99,9 +107,9 @@ __host__ __device__ constexpr int64_t words_of(int64_t steps) {
   return (steps + kChunk - 1) / kChunk;
 }
 // Shared memory of a block: its spike words, and its staged currents.
-static size_t smem_bytes(int64_t steps, bool staged) {
-  return (size_t)words_of(steps) * kFeat * 4 +
-         (staged ? (size_t)staged_row(steps) * kFeat * 4 : 0);
+static size_t smem_bytes(int64_t steps, int mode) {
+  return (mode == kWordsDevice ? 0 : (size_t)words_of(steps) * kFeat * 4) +
+         (mode == kAllShared ? (size_t)staged_row(steps) * kFeat * 4 : 0);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -177,16 +185,20 @@ __device__ int one_pass(const float* col, unsigned* words, int64_t steps,
   return flips;
 }
 
-template <bool kStaged>
+template <int kMode>
 __global__ void __launch_bounds__(kFeat)
 fixed_point_kernel(const float* __restrict__ cur, float* __restrict__ z,
-                   int* __restrict__ stats, int64_t steps, int64_t feat,
-                   float alpha, float vth, int cap) {
+                   int* __restrict__ stats, unsigned* __restrict__ scratch,
+                   int64_t steps, int64_t feat, float alpha, float vth,
+                   int cap) {
+  constexpr bool kStaged = kMode == kAllShared;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int64_t f = (int64_t)blockIdx.x * kFeat + lane;
   const int64_t n_words = words_of(steps);
-  unsigned* words = reinterpret_cast<unsigned*>(smem) + lane;      // (words, kFeat)
+  unsigned* words =                                                // (words, kFeat)
+      (kMode == kWordsDevice ? scratch + blockIdx.x * n_words * kFeat
+                             : reinterpret_cast<unsigned*>(smem)) + lane;
   float* cs = reinterpret_cast<float*>(smem + n_words * kFeat * 4) +
               lane * staged_row(steps);                            // (kFeat, row)
   int iters = 0, flips = 0;
@@ -216,8 +228,9 @@ fixed_point_kernel(const float* __restrict__ cur, float* __restrict__ z,
 }
 
 // The longest trains the current device's opt-in shared memory takes:
-// staged (currents and spikes), and at all (spikes only; the currents are
-// then read from device memory on each pass).  -1 if it cannot be read.
+// staged (currents and spikes), and with its spike words (the currents are
+// then read from device memory on each pass); longer trains keep their
+// spike words in device memory too.  -1 if it cannot be read.
 extern "C" int fixed_point_limits(int64_t* staged, int64_t* most) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -230,35 +243,49 @@ extern "C" int fixed_point_limits(int64_t* staged, int64_t* most) {
   return 0;
 }
 
-template <bool kStaged>
+template <int kMode>
 static cudaError_t launch_fixed_point(const float* cur, float* z, int* stats,
-                                      int64_t steps, int64_t feat, float alpha,
-                                      float vth, int cap, cudaStream_t s) {
+                                      unsigned* scratch, int64_t steps,
+                                      int64_t feat, float alpha, float vth,
+                                      int cap, cudaStream_t s) {
   static size_t opted_in = 48 * 1024;        // the default dynamic limit
-  const size_t bytes = smem_bytes(steps, kStaged);
+  const size_t bytes = smem_bytes(steps, kMode);
   if (bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fixed_point_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fixed_point_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return err;
     opted_in = bytes;
   }
   const unsigned int blocks = (unsigned int)((feat + kFeat - 1) / kFeat);
-  fixed_point_kernel<kStaged><<<blocks, kFeat, bytes, s>>>(
-      cur, z, stats, steps, feat, alpha, vth, cap);
+  fixed_point_kernel<kMode><<<blocks, kFeat, bytes, s>>>(
+      cur, z, stats, scratch, steps, feat, alpha, vth, cap);
   return cudaGetLastError();
 }
 
-// stats: int32[2] <- (passes, residual).  0 < steps <= the limit above,
-// feat > 0 and cap >= 1.
+// stats: int32[2] <- (passes, residual).  mode: a Mode, kAllShared and
+// kWordsShared only for steps within the limits above; scratch: for
+// kWordsDevice, ceil(feat / kFeat) * kFeat * ceil(steps / kChunk) words of
+// device memory (else unused).  steps > 0, feat > 0 and cap >= 1.
 extern "C" int lif_fixed_point_f32(const float* cur, float* z, int* stats,
-                                   int64_t steps, int64_t feat, float alpha,
-                                   float vth, int cap, int staged,
-                                   void* stream) {
+                                   unsigned* scratch, int64_t steps,
+                                   int64_t feat, float alpha, float vth,
+                                   int cap, int mode, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(stats, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  err = staged ? launch_fixed_point<true>(cur, z, stats, steps, feat, alpha, vth, cap, s)
-               : launch_fixed_point<false>(cur, z, stats, steps, feat, alpha, vth, cap, s);
-  return (int)err;
+  switch (mode) {
+    case kAllShared:
+      return (int)launch_fixed_point<kAllShared>(cur, z, stats, scratch, steps,
+                                              feat, alpha, vth, cap, s);
+    case kWordsShared:
+      return (int)launch_fixed_point<kWordsShared>(cur, z, stats, scratch, steps,
+                                                 feat, alpha, vth, cap, s);
+    case kWordsDevice:
+      return (int)launch_fixed_point<kWordsDevice>(cur, z, stats, scratch,
+                                                   steps, feat, alpha, vth,
+                                                   cap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

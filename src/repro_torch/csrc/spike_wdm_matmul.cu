@@ -32,8 +32,12 @@
 // entry makes that one launch.
 //
 // Design: a warp per (row m of wdm, lane n), 8 warps a block; the block
-// shares lane n's stacked row.  The operands are a few KB, so the time is
-// the launch and the chains of dependent loads, and the design keeps those
+// shares lane n's stacked row.  The lane is the grid's y index; the y
+// axis holds at most 65,535 blocks, so above that batch a second variant
+// of the kernel has each block walk the lanes blockIdx.y, blockIdx.y +
+// gridDim.y, ...  (Up to that batch the kernel keeps no loop, so the
+// served shapes run the body as before.)  The operands are a few KB, so
+// the time is the launch and the chains of dependent loads, and the design keeps those
 // chains short.  A tile of 1 KB of K at a time:
 //   1. each lane loads its 8 words of the warp's WDM row, all at once;
 //      rows start at any byte for odd K, so each word is two aligned 4-byte
@@ -75,20 +79,20 @@ __device__ __forceinline__ void store(float* out, int acc) {
 }
 
 // kRing: x is the (N, depth, n_source) ring, read through the merging
-// table; else x is the (N, K) stacked matrix.
+// table; else x is the (N, K) stacked matrix.  One block's rows for lane n.
 template <bool kRing, typename Out>
-__global__ void __launch_bounds__(kThreads)
-wdm_kernel(const int8_t* __restrict__ wdm, const int8_t* __restrict__ x,
-           const int32_t* __restrict__ col_source,
-           const int32_t* __restrict__ col_delay, Out* __restrict__ out,
-           int M, int K, int depth, int n_source, int64_t t) {
+__device__ __forceinline__ void wdm_lane(
+    const int8_t* __restrict__ wdm, const int8_t* __restrict__ x,
+    const int32_t* __restrict__ col_source,
+    const int32_t* __restrict__ col_delay, Out* __restrict__ out, int M, int K,
+    int depth, int n_source, int64_t t, int64_t n) {
   __shared__ __align__(16) int8_t row[kTile];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.y, m = blockIdx.x * kWarps + warp;
+  const int m = blockIdx.x * kWarps + warp;
   const int mis = (int)((uintptr_t)wdm & 3);           // wdm's first byte
   const unsigned* words = reinterpret_cast<const unsigned*>(wdm - mis);
   const int64_t last = (mis + (int64_t)M * K - 1) >> 2;
-  const int8_t* xn = x + (int64_t)n * (kRing ? (int64_t)depth * n_source : K);
+  const int8_t* xn = x + n * (kRing ? (int64_t)depth * n_source : K);
   int acc = 0;
   for (int k0 = 0; k0 < K; k0 += kTile) {
     const int len = min(kTile, K - k0);
@@ -129,19 +133,52 @@ wdm_kernel(const int8_t* __restrict__ wdm, const int8_t* __restrict__ x,
   if (m >= M) return;                       // the whole warp leaves together
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) store(out + (int64_t)n * M + m, acc);
+  if (lane == 0) store(out + n * M + m, acc);
 }
 
-static dim3 grid_of(int M, int N) {        // the wrappers keep N <= 65535
-  return dim3((M + kWarps - 1) / kWarps, N);
+// The grid's y axis is the lane n up to 65,535 lanes (kLoop false); above
+// that each block walks the lanes blockIdx.y, blockIdx.y + gridDim.y, ...
+// The loop is uniform in a block, so every thread reaches every barrier.
+template <bool kRing, bool kLoop, typename Out>
+__global__ void __launch_bounds__(kThreads)
+wdm_kernel(const int8_t* __restrict__ wdm, const int8_t* __restrict__ x,
+           const int32_t* __restrict__ col_source,
+           const int32_t* __restrict__ col_delay, Out* __restrict__ out,
+           int M, int K, int N, int depth, int n_source, int64_t t) {
+  if (!kLoop) {
+    wdm_lane<kRing, Out>(wdm, x, col_source, col_delay, out, M, K, depth,
+                         n_source, t, (int)blockIdx.y);
+    return;
+  }
+  for (int64_t n = blockIdx.y; n < N; n += gridDim.y)
+    wdm_lane<kRing, Out>(wdm, x, col_source, col_delay, out, M, K, depth,
+                         n_source, t, n);
+}
+
+constexpr int kMaxGridY = 65535;
+
+static dim3 grid_of(int M, int N) {
+  return dim3((M + kWarps - 1) / kWarps, N < kMaxGridY ? N : kMaxGridY);
+}
+
+template <bool kRing, typename Out>
+static void launch_wdm(const int8_t* wdm, const int8_t* x,
+                       const int32_t* col_source, const int32_t* col_delay,
+                       Out* out, int M, int K, int N, int depth, int n_source,
+                       int64_t t, cudaStream_t s) {
+  if (N <= kMaxGridY)
+    wdm_kernel<kRing, false, Out><<<grid_of(M, N), kThreads, 0, s>>>(
+        wdm, x, col_source, col_delay, out, M, K, N, depth, n_source, t);
+  else
+    wdm_kernel<kRing, true, Out><<<grid_of(M, N), kThreads, 0, s>>>(
+        wdm, x, col_source, col_delay, out, M, K, N, depth, n_source, t);
 }
 
 extern "C" int spike_wdm_matmul_s8(const int8_t* wdm, const int8_t* stacked,
                                    int32_t* out, int M, int K, int N,
                                    void* stream) {
-  wdm_kernel<false, int32_t><<<grid_of(M, N), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      wdm, stacked, nullptr, nullptr, out, M, K, 1, K, 0);
+  launch_wdm<false, int32_t>(wdm, stacked, nullptr, nullptr, out, M, K, N, 1, K,
+                             0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -150,8 +187,7 @@ extern "C" int spike_wdm_project_s8(const int8_t* wdm, const int8_t* ring,
                                     const int32_t* col_delay, float* out,
                                     int M, int K, int N, int depth,
                                     int n_source, int64_t t, void* stream) {
-  wdm_kernel<true, float><<<grid_of(M, N), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      wdm, ring, col_source, col_delay, out, M, K, depth, n_source, t);
+  launch_wdm<true, float>(wdm, ring, col_source, col_delay, out, M, K, N, depth,
+                          n_source, t, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -15,10 +15,13 @@ LAUNCHES = {"lif_parallel_scan": 0, "lif_fixed_point": 0}
 _ARGTYPES = [ctypes.c_void_p] * 2 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p,
 ]
-_FP_ARGTYPES = [ctypes.c_void_p] * 3 + [
+_FP_ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+#: features a block of the fixed-point kernel runs, and steps a spike word
+#: holds (``kFeat`` and ``kChunk`` in the source)
+_FEAT, _CHUNK = 32, 32
 _fn = None
 _fp_fn = None
 _limits_of = {}
@@ -74,8 +77,16 @@ def _limits(device: torch.device):
 def staged_steps_limit(device: torch.device) -> int:
     """The longest train whose currents the fixed-point kernel stages in
     shared memory on ``device``; longer trains are read from device memory
-    on each pass (their spikes, a bit a step, stay in shared memory)."""
+    on each pass (their spikes, a bit a step, stay in shared memory up to
+    :func:`shared_words_limit`)."""
     return _limits(device)[0]
+
+
+def shared_words_limit(device: torch.device) -> int:
+    """The longest train whose spike words (a bit a step) the fixed-point
+    kernel keeps in shared memory on ``device``; a longer train keeps them
+    in a device-memory scratch buffer the wrapper allocates."""
+    return _limits(device)[1]
 
 
 def _check_fixed_point_args(i_flat: torch.Tensor, cap: int) -> None:
@@ -110,13 +121,19 @@ def lif_fixed_point_launch(
         _fp_fn = _common.load("lif_parallel_scan", "lif_fixed_point_f32",
                               _FP_ARGTYPES)
     staged, most = _limits(dev)
-    if steps > most:
-        raise ValueError(f"lif_fixed_point: {steps} steps; the kernel keeps at "
-                         f"most {most} steps' spikes in shared memory")
-    staged = steps <= staged
+    # where the block keeps its train: currents and spike words in shared
+    # memory (0), the spike words only (1), or neither (2: the words in a
+    # device-memory scratch buffer, one per feature and 32 steps)
+    mode = 0 if steps <= staged else 1 if steps <= most else 2
+    scratch = None
+    if mode == 2:
+        blocks = -(-feat // _FEAT)
+        scratch = torch.empty(blocks * _FEAT * -(-steps // _CHUNK),
+                              dtype=torch.int32, device=dev)
     status = _fp_fn(
-        i_flat.data_ptr(), z.data_ptr(), stats.data_ptr(), steps, feat,
-        ctypes.c_float(alpha), ctypes.c_float(v_th), int(cap), int(staged),
+        i_flat.data_ptr(), z.data_ptr(), stats.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), steps, feat,
+        ctypes.c_float(alpha), ctypes.c_float(v_th), int(cap), mode,
         _common.stream(dev),
     )
     _common.check(status, "lif_fixed_point")
@@ -147,6 +164,6 @@ def lif_fixed_point(
 
 __all__ = [
     "lif_fixed_point", "lif_fixed_point_launch", "lif_fixed_point_ref",
-    "lif_parallel_scan", "lif_parallel_scan_ref", "staged_steps_limit",
-    "LAUNCHES",
+    "lif_parallel_scan", "lif_parallel_scan_ref", "shared_words_limit",
+    "staged_steps_limit", "LAUNCHES",
 ]

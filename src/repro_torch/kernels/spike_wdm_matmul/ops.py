@@ -17,7 +17,6 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _PROJECT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_int64, ctypes.c_void_p,
 ]
-_MAX_BATCH = 65535          # the kernel's grid puts the batch on gridDim.y
 _fn = None
 _project_fn = None
 
@@ -40,8 +39,6 @@ def spike_wdm_matmul(wdm: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
             f"{tuple(wdm.shape)} and {tuple(stacked.shape)}"
         )
     (m, k), n = wdm.shape, stacked.shape[0]
-    if n > _MAX_BATCH:
-        raise ValueError(f"spike_wdm_matmul: batch {n} > {_MAX_BATCH}")
     if k == 0 or m * n == 0:
         return torch.zeros((n, m), dtype=torch.int32, device=dev)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
@@ -91,8 +88,6 @@ def spike_wdm_project(
             f"{tuple(x_hist.shape)}"
         )
     (m, k), (n, depth, n_source) = wdm.shape, x_hist.shape
-    if n > _MAX_BATCH:
-        raise ValueError(f"spike_wdm_project: batch {n} > {_MAX_BATCH}")
     if depth < 1:
         raise ValueError("spike_wdm_project: the ring needs depth >= 1")
     if k == 0 or m * n == 0:

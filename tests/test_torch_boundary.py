@@ -26,7 +26,7 @@ from repro_torch.core.runtime import (
 from repro_torch.core.parallel_compiler import compile_parallel
 from repro_torch.core.serial_compiler import compile_serial
 from repro_torch.kernels.lif_parallel_scan import lif_parallel_scan
-from repro_torch.kernels.lif_update import lif_update
+from repro_torch.kernels.lif_update import CurrentEdge, lif_step, lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import spike_wdm_matmul
 from repro_torch.kernels.ssd_chunk import ssd_chunk
@@ -140,6 +140,9 @@ def test_kernel_wrappers_never_fall_back():
     f32, i8, i32 = torch.float32, torch.int8, torch.int32
     with pytest.raises(ValueError, match="CUDA device"):
         lif_update(*(_meta((4, 3), f32) for _ in range(3)), alpha=0.5, v_th=1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        lif_step([CurrentEdge(_meta((4, 3), f32))], _meta((4, 3), f32),
+                 _meta((4, 3), i8), _meta((4, 3), f32), 0, alpha=0.5, v_th=1.0)
     with pytest.raises(ValueError, match="CUDA device"):
         spike_wdm_matmul(_meta((4, 8), i8), _meta((2, 8), i8))
     with pytest.raises(ValueError, match="CUDA device"):

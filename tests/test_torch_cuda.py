@@ -23,10 +23,18 @@ from repro_torch.kernels.lif_parallel_scan import (
     lif_fixed_point_ref,
     lif_parallel_scan,
     lif_parallel_scan_ref,
+    shared_words_limit,
     staged_steps_limit,
 )
-from repro_torch.kernels.lif_parallel_scan import ops as lif_parallel_scan_ops
-from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+from repro_torch.kernels.lif_update import (
+    MAX_EDGES,
+    CurrentEdge,
+    RingEdge,
+    lif_step,
+    lif_step_ref,
+    lif_update,
+    lif_update_ref,
+)
 from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
 from repro_torch.core.runtime.parallel_runtime import parallel_project
 from repro_torch.kernels.spike_wdm_matmul import (
@@ -303,10 +311,12 @@ def test_fixed_point_edges_and_refusals(card):
         lif_fixed_point(f32.T, alpha=0.5, v_th=64.0, cap=3)
     with pytest.raises(ValueError, match="cap"):
         lif_fixed_point(f32, alpha=0.5, v_th=64.0, cap=0)
-    longest = lif_parallel_scan_ops._limits(card)[1]
-    with pytest.raises(ValueError, match="at most"):
-        lif_fixed_point(torch.zeros((longest + 1, 2), device=card), alpha=0.5,
-                        v_th=64.0, cap=2)
+    # one step past the spike words' shared-memory limit runs (its words in
+    # device memory), as the plain version does
+    longest = shared_words_limit(card)
+    silent = torch.zeros((longest + 1, 2), device=card)
+    z, iters, residual = lif_fixed_point(silent, alpha=0.5, v_th=64.0, cap=2)
+    assert (iters, residual) == (1, 0) and not z.any()
     # the launch form reads nothing back: it makes the host wait for nothing
     i = torch.from_numpy(fixed_point_operands((75, 160), seed=0)).to(card)
     assert sync_count(lambda: lif_fixed_point_launch(i, alpha=0.5, v_th=64.0,
@@ -466,7 +476,9 @@ def test_gesture_on_card_equals_cpu(card, policy):
     got = exe.run(x, valid_steps=valid)
     assert bool(exe.last_check)
     counts = launch_counts()
-    assert counts["lif_update"] == 30 * 2
+    # one population step a population and step, and no standalone update
+    assert counts["lif_step"] == 30 * 2
+    assert counts["lif_update"] == 0
     paradigms = [layer.paradigm for layer in report.layers]
     assert counts["spike_wdm_project"] == 30 * paradigms.count("parallel")
     assert counts["spike_wdm_matmul"] == 0
@@ -611,3 +623,199 @@ def test_mamba2_smoke_on_card_equals_cpu(card):
         got, gc = lm.decode_step(gpu, cfg, tok.to(card), 40 + step, gc, 48)
         assert launch_counts()["ssd_chunk"] == 0
         want, wc = lm.decode_step(cpu, cfg, tok, 40 + step, wc, 48)
+
+
+#: In-edge kinds of the population step: a parallel edge's current, and a
+#: serial edge's ring with its form's update layout (K3's (d*N, B) output
+#: viewed (d, B, N); the dense einsum's contiguous (d, B, N); the event
+#: form's (B, d, N) scatter viewed (d, B, N), landing unshifted).
+EDGE_KINDS = ("current", "sparse", "dense", "event")
+
+
+def lif_step_operands(kinds, batch, n, d_slots, seed, alpha=0.5):
+    """NumPy operands of one population step: per edge ``(kind, current)``
+    or ``(kind, ring, update)`` with int8-magnitude integer values (as the
+    path's currents are), a real-valued membrane ``v`` near the threshold
+    and int8 spikes ``z``.  The updates are in their form's own layout."""
+    rng = np.random.default_rng(seed)
+    v_th = 64.0 if alpha == 0.5 else 1.0
+    scale = 40 if alpha == 0.5 else 1
+    edges = []
+    for kind in kinds:
+        ints = lambda shape: (rng.integers(-3, 4, shape) * scale).astype(np.float32)
+        if kind == "current":
+            edges.append((kind, ints((batch, n))))
+            continue
+        ring = ints((d_slots, batch, n))
+        upd = {"sparse": (d_slots * n, batch), "dense": (d_slots, batch, n),
+               "event": (batch, d_slots, n)}[kind]
+        edges.append((kind, ring, ints(upd)))
+    v = (rng.normal(size=(batch, n)) * v_th).astype(np.float32)
+    z = rng.integers(0, 2, (batch, n)).astype(np.int8)
+    return edges, v, z, v_th
+
+
+def lif_step_tensors(operands, t, device):
+    """Torch edges (updates as the strided views the executor hands over)
+    and carry from :func:`lif_step_operands`, on ``device``."""
+    edges_np, v, z, _ = operands
+    edges = []
+    for kind, *arrays in edges_np:
+        ts = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        if kind == "current":
+            edges.append(CurrentEdge(ts[0]))
+            continue
+        ring, upd = ts
+        d_slots, batch, n = ring.shape
+        if kind == "sparse":
+            upd = upd.view(d_slots, n, batch).permute(0, 2, 1)
+        elif kind == "event":
+            upd = upd.transpose(0, 1)
+        edges.append(RingEdge(ring, upd, 0 if kind == "event" else t))
+    v, z = (torch.from_numpy(a.copy()).to(device) for a in (v, z))
+    out = torch.full(v.shape, -1.0, device=device)
+    return edges, v, z, out
+
+
+def assert_steps_equal(a, b):
+    """Two population steps' outputs, carries and rings bitwise equal."""
+    (ea, va, za, oa), (eb, vb, zb, ob) = a, b
+    assert torch.equal(va.view(torch.int32).cpu(), vb.view(torch.int32).cpu())
+    assert torch.equal(za.cpu(), zb.cpu()) and torch.equal(oa.cpu(), ob.cpu())
+    for x, y in zip(ea, eb):
+        if isinstance(x, RingEdge):
+            assert torch.equal(x.ring.view(torch.int32).cpu(),
+                               y.ring.view(torch.int32).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_slots", [3, 20])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("alpha", [0.5, 0.9])
+@pytest.mark.parametrize("kinds", [(k,) for k in EDGE_KINDS] + [
+    ("current", "sparse", "event"), ("dense", "current", "sparse"),
+    ("sparse", "event", "dense", "current", "sparse", "current", "event", "dense"),
+    ("sparse",) * 9,
+    ("event", "current", "dense", "sparse") * 4 + ("current",),
+])
+def test_lif_step_kernel_on_card(card, kinds, alpha, batch, d_slots):
+    """One launch up to eight in-edges (two for 9, three for 17), bitwise
+    equal to the plain version on v, z, the spike row and every ring, for
+    every edge kind, at t before and past the ring depth (the sparse and
+    dense updates land t slots on), with the ring in registers (3 slots)
+    and slot by slot (20)."""
+    n_launches = 1 + -(-max(0, len(kinds) - MAX_EDGES) // (MAX_EDGES - 1))
+    for t in (0, 2 * d_slots + 1):
+        ops = lif_step_operands(kinds, batch, 20, d_slots, seed=t + len(kinds),
+                                alpha=alpha)
+        got = lif_step_tensors(ops, t, card)
+        want = lif_step_tensors(ops, t, card)
+        before = launch_counts()["lif_step"]
+        out = lif_step(*got, t, alpha=alpha, v_th=ops[3])
+        assert launch_counts()["lif_step"] == before + n_launches
+        assert out is got[3]
+        lif_step_ref(*want, t, alpha=alpha, v_th=ops[3])
+        torch.cuda.synchronize()
+        assert_steps_equal(got, want)
+        assert 0 < float(got[3].mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 64])
+def test_lif_step_kernel_at_scaffold_width(card, batch):
+    """80,000 neurons and 3 in-edges (the cerebellum's Purkinje in-degree):
+    bitwise against the plain version, the sparse update read strided."""
+    kinds = ("current", "sparse", "event")
+    ops = lif_step_operands(kinds, batch, 80_000, 2, seed=batch)
+    got, want = (lif_step_tensors(ops, 5, card) for _ in range(2))
+    lif_step(*got, 5, alpha=0.5, v_th=ops[3])
+    lif_step_ref(*want, 5, alpha=0.5, v_th=ops[3])
+    torch.cuda.synchronize()
+    assert_steps_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lif_step_edges_and_refusals(card):
+    ops = lif_step_operands(("current", "sparse"), 4, 6, 2, seed=0)
+    edges, v, z, out = lif_step_tensors(ops, 1, card)
+    before = launch_counts()["lif_step"]
+    # a population with no in-edge fires on a zero current
+    want = lif_step_tensors(ops, 1, card)
+    lif_step([], v, z, out, 1, alpha=0.5, v_th=64.0)
+    lif_step_ref([], *want[1:], 1, alpha=0.5, v_th=64.0)
+    assert_steps_equal(([], v, z, out), ([], *want[1:]))
+    empty = torch.empty((0, 6), device=card)
+    lif_step([], empty, empty.to(torch.int8), empty, 0, alpha=0.5, v_th=64.0)
+    assert launch_counts()["lif_step"] == before + 1
+    # past eight in-edges the launches chain, and a bad edge in a later
+    # launch refuses before the first one runs
+    many = [edges[0]] * (MAX_EDGES + 1)
+    lif_step(many, v, z, out, 1, alpha=0.5, v_th=64.0)
+    lif_step_ref(many, *want[1:], 1, alpha=0.5, v_th=64.0)
+    assert_steps_equal(([], v, z, out), ([], *want[1:]))
+    assert launch_counts()["lif_step"] == before + 3
+    with pytest.raises(ValueError, match="shape"):
+        lif_step(many + [CurrentEdge(v[:2])], v, z, out, 1, alpha=0.5, v_th=1.0)
+    assert launch_counts()["lif_step"] == before + 3
+    with pytest.raises(TypeError, match="int8 z"):
+        lif_step(edges, v, z.float(), out, 1, alpha=0.5, v_th=1.0)
+    with pytest.raises(ValueError, match="ring must be contiguous"):
+        ring = edges[1].ring.transpose(1, 2).contiguous().transpose(1, 2)
+        lif_step([RingEdge(ring, edges[1].upd, 1)], v, z, out, 1,
+                 alpha=0.5, v_th=1.0)
+    with pytest.raises(ValueError, match="shape"):
+        lif_step([CurrentEdge(v[:2])], v, z, out, 1, alpha=0.5, v_th=1.0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lif_step([CurrentEdge(v.cpu())], v, z, out, 1, alpha=0.5, v_th=1.0)
+    # no host wait: the step can be captured in a CUDA graph
+    assert sync_count(lambda: lif_step(edges, v, z, out, 2, alpha=0.5,
+                                       v_th=64.0)) == 0
+
+
+def long_train(steps, feat, seed):
+    """A (T, F) current train whose fixed point settles in a few passes:
+    integer currents far below the threshold of 64, with rare pulses that
+    fire once or twice (at alpha 0.9) whatever came before."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-12, 1, (steps, feat)).astype(np.float32)
+    pulse = rng.random((steps, feat)) < 0.002
+    return np.where(pulse, np.float32(100.0), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.5, 0.9])
+@pytest.mark.parametrize("cap", ["2", "T+1"])
+@pytest.mark.parametrize("feat", [32, 40])
+def test_fixed_point_spike_words_in_device_memory(card, feat, cap, alpha):
+    """T = 60,000, past the spike words' shared-memory limit: the third
+    branch keeps them in device memory and equals the plain version (run
+    on a CPU copy) in spikes, passes and residual."""
+    steps = 60_000
+    assert steps > shared_words_limit(card)
+    host = torch.from_numpy(long_train(steps, feat, seed=feat))
+    cap = 2 if cap == "2" else steps + 1
+    before = launch_counts()["lif_fixed_point"]
+    z, iters, residual = lif_fixed_point(host.to(card), alpha=alpha, v_th=64.0,
+                                         cap=cap)
+    assert launch_counts()["lif_fixed_point"] == before + 1
+    zr, iters_r, residual_r = lif_fixed_point_ref(host, alpha=alpha, v_th=64.0,
+                                                  cap=cap)
+    assert iters_r <= 4
+    assert torch.equal(z.cpu(), zr) and (iters, residual) == (iters_r, residual_r)
+    assert 0 < float(zr.mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [65_536, 70_000])
+def test_wdm_kernels_past_65535_lanes(card, batch):
+    """The batch is no longer a grid dimension's size: both WDM entry points
+    are exact past 65,535 lanes."""
+    a, x = wdm_operands(5, 40, batch, seed=batch)
+    a, xt = torch.from_numpy(a).to(card), torch.from_numpy(x.T.copy()).to(card)
+    assert torch.equal(spike_wdm_matmul(a, xt), spike_wdm_matmul_ref(a, xt))
+    ops = [torch.from_numpy(o).to(card)
+           for o in project_operands(5, 40, batch, 2, 30, seed=batch)]
+    for t in (0, 3):
+        out = spike_wdm_project(*ops, t)
+        assert out.shape == (batch, 5)
+        assert torch.equal(out, spike_wdm_project_ref(*ops, t))

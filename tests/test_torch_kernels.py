@@ -26,7 +26,7 @@ from repro_torch.kernels.lif_parallel_scan import (
     lif_fixed_point,
     lif_parallel_scan,
 )
-from repro_torch.kernels.lif_update import lif_update
+from repro_torch.kernels.lif_update import CurrentEdge, lif_step, lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul,
@@ -269,8 +269,11 @@ def test_plain_versions_count_no_launches():
                       torch.zeros((2, 1, 3), dtype=torch.int8), 0)
     ssd_chunk(torch.zeros((4, 2, 3)), torch.zeros((4, 2, 5)),
               torch.zeros((4, 2, 5)), torch.zeros((4, 2)))
+    lif_step([CurrentEdge(torch.ones((2, 3)))], torch.zeros((2, 3)),
+             torch.zeros((2, 3), dtype=torch.int8), torch.empty((2, 3)), 0,
+             alpha=0.5, v_th=1.0)
     assert launch_counts() == {
-        "lif_update": 0, "spike_wdm_matmul": 0, "spike_wdm_project": 0,
+        "lif_update": 0, "lif_step": 0, "spike_wdm_matmul": 0, "spike_wdm_project": 0,
         "sparse_gather": 0, "lif_parallel_scan": 0, "lif_fixed_point": 0,
         "ssd_chunk": 0,
     }
