@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Seven phases,
+``nvcc``; exits non-zero, printing no result, without them.  Eight phases,
 none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
@@ -40,13 +40,29 @@ none of which is caught and swallowed:
 3. **Serve, fused.**  Sixteen seeded requests (25-75 steps, widths
    2048/1536/1024 zero-padded to 2048, rate 0.2) as two padded
    micro-batches of 8 through ``network_executable(...).run_device(...,
-   valid_steps=...)`` for each report.  Every reply must equal, bit for
-   bit, the request run alone at batch 1 on the card, the port on the CPU,
-   and ``run_graph_reference``.  One parallel edge's step must be two
+   valid_steps=...)`` and ``run_batched`` (which must give the same bits
+   and record the same forms) for each report.  Every reply must equal,
+   bit for bit, the request run alone at batch 1 on the card, the port on
+   the CPU, and ``run_graph_reference``.  One parallel edge's step must be two
    device operations (the fused K2 and the ring write) and no host wait;
    a whole step must be its projections' operations (two a parallel edge,
    K3 a sparse serial edge) and one ``lif_step`` a population, counted
-   from the profiler at two train lengths, with no host wait in a launch.
+   from the profiler at two train lengths, with no host wait in a launch;
+   ``run_batched`` must take the same device operations a step.
+3b. **Serve, engine.**  ``repro_torch.serving.ServingEngine`` serves
+   ``examples/serve_snn.py``'s traffic (64 Poisson requests at 500/s,
+   25-75 steps, widths 2048/1536/1024, rate 0.2, ~30% to the all-parallel
+   model ``parallel-all``, ~25% priority 2 with a 2 s deadline, seed 0)
+   under continuous admission with the classifier-switched report as
+   ``default``, then the same requests replayed to ``default`` in one
+   drain.  Every reply must equal the request alone on the card, the port
+   on the CPU and ``run_graph_reference``; after warmup nothing re-lowers
+   and every launch is a bucket hit; both launch paths run (full buckets
+   ``run_batched``, partial ``run_device``); the launch supervisor counts
+   no fault; and ``lif_step``, ``spike_wdm_project`` and ``sparse_gather``
+   launch exactly as often as the launches' steps imply.  Requests a
+   second, p50/p95 latency and one supervised launch's host time beside
+   ``run_device``'s (in turns) are printed.
 4. **Serve, temporal.**  The same micro-batches through ``run_temporal``
    (whole-train projections, the fused K4 once per iterative population
    for its whole fixed point, K3 for the sparse projections over all T·B
@@ -621,7 +637,9 @@ def micro_batch(reqs):
 
 def serve_main_path(net, reports, batches):
     """The port's main path: every micro-batch through run_device on the
-    card, for each report.  Returns the replies as host arrays."""
+    card, and through run_batched (the engine's path for full buckets),
+    which must give the same bits, for each report.  Returns the replies
+    as host arrays."""
     from repro_torch.core.runtime import network_executable
 
     served = {}
@@ -631,7 +649,14 @@ def serve_main_path(net, reports, batches):
         for x, vs in batches:
             outs = exe.run_device(x, valid_steps=vs)
             require(bool(exe.last_check), f"{name}: last_check is False")
+            batched = exe.run_batched(x, valid_steps=vs)
+            require(bool(exe.last_check), f"{name}: batched last_check is False")
+            require(same_replies(outs, batched),
+                    f"{name}: run_batched differs from run_device")
             served[name].append([z.cpu().numpy() for z in outs])
+        require(rep.serial_forms[("vmap", MICRO_BATCH)]
+                == rep.serial_forms[("fused", MICRO_BATCH)],
+                f"{name}: run_batched chose other forms than run_device")
     torch.cuda.synchronize()
     return served
 
@@ -673,6 +698,212 @@ def hold_replies(net, reports, batches, served, oracles):
         print(f"serve: {name:10s} {n_rep} replies bit-identical to solo runs "
               f"(forms at batch 1: {solo_forms}), to the port on the CPU and to "
               f"run_graph_reference; forms at batch 8: {forms}")
+
+
+# -- 3b. serve through the engine ------------------------------------------------
+#: examples/serve_snn.py's second tenant: the all-parallel compilation
+ALT_MODEL = "parallel-all"
+#: serve_snn.py's traffic: requests, base steps (mix 0.5x-1.5x), input
+#: spike rate, Poisson arrivals a second, seed
+ENGINE_TRAFFIC = dict(n_requests=64, base_steps=50, rate=0.2, arrival_hz=500.0)
+
+
+def poisson_traffic(rng, n_requests, base_steps, rate, arrival_hz):
+    """examples/serve_snn.py's Poisson arrivals: steps in [base/2,
+    3*base/2], one of three widths, ~30% to the second model, ~25%
+    interactive (priority 2, 2 s deadline), the rest bulk (priority 0)."""
+    lo = max(2, base_steps // 2)
+    hi = max(lo, base_steps + base_steps // 2)
+    width_mix = [N_INPUT, 3 * N_INPUT // 4, N_INPUT // 2]
+    arrivals = np.cumsum(rng.exponential(1.0 / arrival_hz, n_requests))
+    traffic = []
+    for t_arr in arrivals:
+        steps = int(rng.integers(lo, hi + 1))
+        n_in = int(rng.choice(width_mix))
+        spikes = (rng.random((steps, n_in)) < rate).astype(np.float32)
+        model = ALT_MODEL if rng.random() < 0.3 else "default"
+        interactive = rng.random() < 0.25
+        traffic.append((float(t_arr), spikes, model, 2 if interactive else 0,
+                        2000.0 if interactive else None))
+    return (lo, hi), traffic
+
+
+def engine_ready(net, reports):
+    """serve_snn.py's engine: the classifier-switched report as "default",
+    the all-parallel one as ALT_MODEL, every bucket of the traffic warmed.
+    Every pool launch is recorded as (model, bucket steps)."""
+    from repro_torch.serving import ServingEngine
+
+    (lo, hi), traffic = poisson_traffic(np.random.default_rng(0),
+                                        **ENGINE_TRAFFIC)
+    engine = ServingEngine(net, reports["classifier"], micro_batch=MICRO_BATCH,
+                           min_bucket_steps=8)
+    warmed = engine.warmup(list(range(lo, hi + 1)))
+    engine.register_model(net, reports["parallel"], ALT_MODEL,
+                          warm_steps=list(range(lo, hi + 1)))
+    launched = []
+    run = engine.pool.run_microbatch
+
+    def recorded(mb, name=None, **kw):
+        launched.append((name or mb.model, mb.key.steps))
+        return run(mb, name, **kw)
+
+    engine.pool.run_microbatch = recorded
+    print(f"engine: 2 models, {warmed} bucket shapes warmed for steps {lo}..{hi}, "
+          f"{len({sp.shape for _, sp, *_ in traffic})} distinct request shapes "
+          "inbound")
+    return engine, traffic, launched
+
+
+def serve_engine(engine, traffic):
+    """The SNN user's path, as examples/serve_snn.py drives it: Poisson
+    arrivals under continuous admission (one bucket a step_continuous),
+    then the same requests replayed to "default" in one drain (full
+    buckets: run_batched).  Returns the request ids of both passes, the
+    stats after the Poisson pass and its requests a second."""
+    rids = []
+    idx, t0 = 0, time.perf_counter()
+    while idx < len(traffic) or not engine.queue.empty() \
+            or engine.scheduler.has_open():
+        now = time.perf_counter() - t0
+        while idx < len(traffic) and traffic[idx][0] <= now:
+            _, spikes, model, prio, deadline = traffic[idx]
+            rids.append(engine.submit(spikes, model=model, priority=prio,
+                                      deadline_ms=deadline))
+            idx += 1
+        if engine.queue.empty() and not engine.scheduler.has_open():
+            time.sleep(0.001)           # idle until the next arrival is due
+            continue
+        engine.step_continuous()        # admit arrivals, launch ONE bucket
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    replay = [engine.submit(spikes) for _, spikes, *_ in traffic]
+    engine.drain()
+    return rids, replay, stats, stats["requests"] / wall
+
+
+def hold_engine(net, reports, engine, traffic, rids, replay, launched, counts):
+    """Every reply of both passes against the request alone on the card,
+    the port on the CPU and run_graph_reference; the steady state (no
+    re-lowering, no miss, no fault); both launch paths taken; and the
+    kernels launched exactly as the launches and their steps imply."""
+    from repro_torch.core.runtime import (
+        NetworkExecutable, network_executable, run_graph_reference,
+    )
+    from repro_torch.serving import FailedReply, ShedReply
+
+    st = engine.stats()
+    sup = st["supervisor"]
+    by = st["by_model"]
+    require(st["relowerings"] == 0 and st["bucket_misses"] == 0,
+            f"engine: {st['relowerings']} re-lowerings, {st['bucket_misses']} "
+            "bucket misses after warmup")
+    for k in ("retries", "degraded_launches", "validation_failures",
+              "quarantined", "watchdog_stalls", "bisections"):
+        require(sup[k] == 0, f"engine: supervisor counted {sup[k]} {k}")
+    require(st["failed"] == 0, f"engine: {st['failed']} FailedReplies")
+    for k in ("batched_launches", "fused_launches"):
+        require(sum(c[k] for c in by.values()) > 0, f"engine: no {k}")
+    model_rep = {"default": reports["classifier"], ALT_MODEL: reports["parallel"]}
+    solo = {m: network_executable(net, r) for m, r in model_rep.items()}
+    cpu = {m: NetworkExecutable.build(net, r, device="cpu")
+           for m, r in model_rep.items()}
+    oracle, n_held, n_shed = {}, 0, 0
+    passes = [(rid, i, model) for i, (rid, (_, _, model, _, _)) in
+              enumerate(zip(rids, traffic))]
+    passes += [(rid, i, "default") for i, rid in enumerate(replay)]
+    for rid, i, model in passes:
+        reply = engine.results[rid]
+        if isinstance(reply, ShedReply):
+            n_shed += 1
+            continue
+        require(not isinstance(reply, FailedReply), f"engine: request {rid} failed")
+        spikes = traffic[i][1]
+        x = np.zeros((spikes.shape[0], 1, N_INPUT), np.float32)
+        x[:, 0, : spikes.shape[1]] = spikes
+        if i not in oracle:
+            oracle[i] = run_graph_reference(net, x)
+        for z, a, c, o in zip(reply, solo[model].run(x), cpu[model].run(x),
+                              oracle[i]):
+            require(np.array_equal(z, a[:, 0]),
+                    f"engine: reply {rid} differs from its solo run on the card")
+            require(np.array_equal(z, c[:, 0]),
+                    f"engine: reply {rid} differs from the port on the CPU")
+            require(np.array_equal(z, o[:, 0]),
+                    f"engine: reply {rid} differs from run_graph_reference")
+        n_held += 1
+    want = {"lif_step": 0, "spike_wdm_project": 0, "sparse_gather": 0}
+    for model, steps in launched:
+        forms = solo[model].serial_forms(MICRO_BATCH)
+        want["lif_step"] += steps * (len(net.layer_sizes) - 1)
+        want["spike_wdm_project"] += steps * forms.count("-")
+        want["sparse_gather"] += steps * forms.count("sparse")
+    for k, n in want.items():
+        require(counts[k] == n and n > 0,
+                f"engine: {counts[k]} {k} launches, the {len(launched)} launches "
+                f"imply {n}")
+    require(counts["lif_update"] == counts["spike_wdm_matmul"] == 0,
+            f"engine: standalone kernels launched: {counts}")
+    print(f"engine: {n_held} replies ({len(rids)} Poisson, {len(replay)} replayed; "
+          f"{n_shed} shed) bit-identical to the request alone on the card, the "
+          f"port on the CPU and run_graph_reference; {len(launched)} launches "
+          f"(batched {sum(c['batched_launches'] for c in by.values())}, fused "
+          f"{sum(c['fused_launches'] for c in by.values())}), hits "
+          f"{st['bucket_hits']}, misses {st['bucket_misses']}, re-lowerings "
+          f"{st['relowerings']}, supervisor faults 0; kernel launches {want} as "
+          "the launches' steps imply")
+
+
+def time_engine(net, reports, engine, traffic, stats, rps, card):
+    """The engine's numbers on the card: requests a second and latency of
+    the Poisson pass; and one full micro-batch's launch through the
+    supervisor (run_batched, the wait for the card, the flag read and the
+    host copies) beside run_device alone on it with a sync, in turns."""
+    from repro_torch.core.runtime import network_executable
+    from repro_torch.serving import BucketKey, SNNRequest, pad_microbatch
+
+    reqs = [SNNRequest(i, sp, 0.0) for i, (_, sp, m, _, _) in enumerate(traffic)
+            if 32 < sp.shape[0] <= 64][:MICRO_BATCH]
+    mb = pad_microbatch(BucketKey(steps=64, n_in=N_INPUT, batch=MICRO_BATCH),
+                        reqs, "default")
+    exe = network_executable(net, reports["classifier"])
+
+    def launch_engine():
+        return engine.supervisor.run(mb)
+
+    def launch_device():
+        outs = exe.run_device(mb.spikes, valid_steps=mb.valid_steps)
+        torch.cuda.synchronize()
+        return outs
+
+    replies = launch_engine()
+    outs = launch_device()
+    for b, req in enumerate(reqs):
+        for z, o in zip(replies[req.request_id], outs):
+            require(np.array_equal(z, o[: req.steps, b].cpu().numpy()),
+                    "engine: the supervised launch differs from run_device")
+    ht, (ht_a, ht_b), hd, (hd_a, hd_b) = in_turns(launch_engine, launch_device)
+    waits = sync_count(launch_engine)
+    waits_d = sync_count(launch_device)
+    dev, n_dev, _ = profiled_ms(launch_engine)
+    lat = stats["latency_by_priority"]
+    print(f"engine timing [{card}]: Poisson pass of {stats['requests']} requests "
+          f"({ENGINE_TRAFFIC['arrival_hz']:.0f}/s offered): {rps:.1f} requests/s, "
+          f"latency p50 {stats['p50_ms']:.3f} ms p95 {stats['p95_ms']:.3f} ms "
+          f"(priority 2: p50 {lat.get(2, {}).get('p50_ms', float('nan')):.3f}, p95 "
+          f"{lat.get(2, {}).get('p95_ms', float('nan')):.3f}; priority 0: p50 "
+          f"{lat.get(0, {}).get('p50_ms', float('nan')):.3f}, p95 "
+          f"{lat.get(0, {}).get('p95_ms', float('nan')):.3f}), mean queue wait "
+          f"{stats['mean_queue_wait_ms']:.3f} ms, mean occupancy "
+          f"{stats['mean_batch_occupancy']:.3f}, {stats['batches']} launches, "
+          f"{stats['throughput_request_steps_per_s']:,.0f} request-steps/s, "
+          f"{stats['shed']} shed")
+    print(f"engine timing [{card}]: one full micro-batch of {MICRO_BATCH} (64 steps) "
+          f"through the supervisor {ht:.3f} ms per launch ({ht_a:.3f}, {ht_b:.3f}), "
+          f"host waits {waits}, device {dev:.3f} ms in {n_dev} launches (profiler), "
+          f"busy share {dev / ht:.3f}; run_device + sync {hd:.3f} ms ({hd_a:.3f}, "
+          f"{hd_b:.3f}), host waits {waits_d}; the engine adds {ht - hd:+.3f} ms "
+          f"({100 * (ht / hd - 1):+.1f}%)")
 
 
 def parallel_edge_ops(operands, ring):
@@ -1147,7 +1378,8 @@ def time_temporal(net, name, rep, batch, card):
 
 def launch_pair(net, rep, batch, steps=None):
     """run_device of one micro-batch (cut to its first ``steps`` steps when
-    given) through the population step, and through the route it replaced."""
+    given) through the population step, through the route it replaced, and
+    run_batched of the same micro-batch."""
     from repro_torch.core.runtime import network_executable
 
     exe = network_executable(net, rep)
@@ -1162,7 +1394,10 @@ def launch_pair(net, rep, batch, steps=None):
         with old_population_route():
             return exe.run_device(xs, valid_steps=vs_t)
 
-    return launch, launch_old
+    def launch_batched():
+        return exe.run_batched(xs, valid_steps=vs_t)
+
+    return launch, launch_old, launch_batched
 
 
 def step_ops(net, name, rep, batch):
@@ -1173,7 +1408,8 @@ def step_ops(net, name, rep, batch):
     adds any, so each count is the largest of three profiles.  A step must
     be its projections' operations (the fused K2 and the ring copy a
     parallel edge, K3 a sparse serial edge) and one lif_step a population;
-    a launch waits for the card nowhere."""
+    a launch waits for the card nowhere.  run_batched must cost the same
+    device operations a step as run_device."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     steps = batch[0].shape[0]
@@ -1181,7 +1417,7 @@ def step_ops(net, name, rep, batch):
     n_pops = len(net.layer_sizes) - 1
     want = n_pops + sum(2 if l.paradigm == "parallel" else 1 for l in rep.layers)
     launches, ops = {}, {}
-    for route in (0, 1):
+    for route in (0, 1, 2):
         full = launch_pair(net, rep, batch)[route]
         short = launch_pair(net, rep, batch, half)[route]
         n_full, n_short = (max(profiled_ms(fn)[1] for _ in range(3))
@@ -1198,12 +1434,15 @@ def step_ops(net, name, rep, batch):
             f"steps of {n_pops} populations")
     require(ops[0] == want, f"serve {name}: {ops[0]} device operations a step, "
             f"want {want}")
+    require(ops[2] == want, f"serve {name}: run_batched takes {ops[2]} device "
+            f"operations a step, want {want}")
     require(waits == 0, f"serve {name}: run_device waits for the card {waits} times")
     require(launches[0] < launches[1],
             f"serve {name}: {launches[0]} device launches a launch, old route "
             f"{launches[1]}")
     print(f"serve: {name:10s} device operations a step {ops[0]:g} (projections "
-          f"{want - n_pops}, lif_step {n_pops}), old route {ops[1]:g}; device "
+          f"{want - n_pops}, lif_step {n_pops}), run_batched {ops[2]:g}, old "
+          f"route {ops[1]:g}; device "
           f"launches a run_device launch of {steps} steps {launches[0]} (constant "
           f"{launches[0] - ops[0] * steps:g}), old route {launches[1]}; lif_step "
           f"launches {counts['lif_step']}, "
@@ -1216,7 +1455,7 @@ def time_serving(net, name, rep, batch, card):
     (ends in a sync; in turns new, old, old, new), the same launch's device
     time (captured once as a CUDA graph and replayed, so no host time is in
     it), and the device kernels that make it up."""
-    launch, launch_old = launch_pair(net, rep, batch)
+    launch, launch_old, _ = launch_pair(net, rep, batch)
     x, vs = batch
     require(same_replies(launch(), launch_old()),
             f"serve {name}: the population step and the old route differ")
@@ -1900,6 +2139,14 @@ def main() -> int:
     for name, rep in reports.items():
         step_ops(net, name, rep, batches[0])
 
+    # 3b. serve through the engine: the SNN user's path, counts read around it
+    engine, traffic, launched = engine_ready(net, reports)
+    reset_launch_counts()
+    rids, replay, e_stats, e_rps = serve_engine(engine, traffic)
+    e_counts = launch_counts()
+    print(f"engine: launches on the engine's path: {e_counts}")
+    hold_engine(net, reports, engine, traffic, rids, replay, launched, e_counts)
+
     # 4. serve, temporal: the second path, counts read around it alone
     reset_launch_counts()
     t_served, t_records = serve_temporal(net, reports, batches)
@@ -1927,6 +2174,7 @@ def main() -> int:
     for name, rep in reports.items():
         time_serving(net, name, rep, batches[0], card)
         time_temporal(net, name, rep, batches[1], card)
+    time_engine(net, reports, engine, traffic, e_stats, e_rps, card)
     serve_mamba2_bf16(card, host32, steps32, greedy32)
 
     gather_args = max(ell_s, key=lambda e: e[0].numel())
@@ -1955,7 +2203,7 @@ def main() -> int:
     path["lif_fixed_point"] = fps[0]
     wdm, src, dly, _, _ = par_s[0]
     path["spike_wdm_project"] = (wdm, src, dly, rings[0], 5)
-    launches = {k: counts[k] + t_counts[k] for k in counts}
+    launches = {k: counts[k] + t_counts[k] + e_counts[k] for k in counts}
     launches["ssd_chunk"] += ssd_launches
     ssm = cfg32.ssm
     path["ssd_chunk"] = ((LM_BATCH * -(-LM_PROMPT // ssm.chunk), ssm.chunk,

@@ -58,6 +58,15 @@ def lowering_counts() -> dict:
     return {"serial": _ser_rt.LOWER_COUNT, "parallel": _par_rt.LOWER_COUNT}
 
 
+def lowering_total() -> int:
+    """Sum of all lowering invocations — the serving layer's staleness probe.
+
+    The executable pool snapshots this at warmup and asserts it never moves
+    under steady-state traffic (zero re-lowerings per bucket hit).
+    """
+    return sum(lowering_counts().values())
+
+
 __all__ = [
     "run_network", "run_network_layerwise", "run_graph_reference",
     "LIFState", "init_state", "reference_step", "run_reference",
@@ -72,7 +81,7 @@ __all__ = [
     "GraphPlan", "LayerMeta", "NetworkExecutable",
     "OutputValidationError", "validate_spike_outputs",
     "get_layer_executable", "network_executable",
-    "release_network_executable", "lowering_counts",
+    "release_network_executable", "lowering_counts", "lowering_total",
     "TemporalReport", "choose_temporal_mode", "temporal_lif",
     "temporal_project_dense", "temporal_project_sparse", "temporal_step",
 ]

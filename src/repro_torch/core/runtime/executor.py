@@ -44,6 +44,13 @@ The timestep ``t`` is a host integer and nothing in the loop reads a
 device value back: a launch enqueues its whole T-step run, and the
 all-0/1 output self-check stays on the device (:attr:`last_check`).
 
+:meth:`NetworkExecutable.run_batched` is the serving engine's path for
+full micro-batches: the reference vmaps width-1 scans over the request
+axis, and here the batch axis is already written out, so it runs the same
+loop as :meth:`~NetworkExecutable.run_device` and records its forms under
+``("vmap", B)``.  :meth:`NetworkExecutable.shard` places the operands; on
+one card it is the identity.
+
 :meth:`NetworkExecutable.run_temporal` is the second launch path, the
 temporal-parallel paradigm (:mod:`.temporal_runtime`): feed-forward
 populations compute all T steps at once, and only the back-edge interval
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...distributed import sharding as shardlib
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
 from ..layer import LIFParams, SNNNetwork
@@ -497,6 +505,9 @@ class NetworkExecutable:
         #: The application-graph execution plan; a plain chain when the
         #: handle was constructed from bare metas.
         self.plan = plan or (_chain_plan(self.metas) if self.metas else None)
+        #: Serving-layer routing tag: the registered model name this
+        #: handle serves (set by ``network_executable(..., model=...)``).
+        self.model: str | None = None
         #: The report this executable was built from; launches record
         #: their serial kernel-form decisions into ``report.serial_forms``.
         self.report = report
@@ -507,11 +518,24 @@ class NetworkExecutable:
         self._temporal = {}  # layer index -> parallel WDM as (d_slots, S, T)
         self._nonneg = {}    # layer index -> all weights >= 0
         self._tplan = None   # cached TemporalPlan
+        #: The launch entries run so far, keyed like the reference's jit
+        #: cache: ``(path, forms, max_iters)`` (see :meth:`jit_entries`).
+        self._entries = set()
         #: Device bool tensor from the last launch: True iff every output
         #: entry was exactly 0.0 or 1.0 (NaN/Inf equal neither).  Computed
         #: on the device after the loop and never read back by the launch,
         #: so checking it costs the caller one sync when it wants to know.
         self.last_check = None
+
+    def jit_entries(self) -> int:
+        """Distinct launch entries this handle has run.
+
+        The port compiles nothing per entry; the count equals the
+        reference's number of jitted scans on the same traffic (one per
+        launch path, form tuple and fixed-point cap), which is what the
+        serving pool's counters report.
+        """
+        return len(self._entries)
 
     @classmethod
     def build(
@@ -747,6 +771,62 @@ class NetworkExecutable:
         if self.report is not None:
             self.report.serial_forms[(path, batch)] = forms
 
+    # -- sharding ------------------------------------------------------------
+    @property
+    def mesh(self):
+        """The mesh params are placed on: ``None``, the one-card identity."""
+        return None
+
+    def shard(
+        self,
+        mesh=None,
+        rules: dict | None = None,
+        *,
+        assignment=None,
+    ) -> "NetworkExecutable":
+        """Place the lowered operands by the SNN logical-axis rules.
+
+        On one card (:func:`~repro_torch.distributed.sharding.snn_mesh`
+        returns ``None``) this is the **identity**: no operand moves and
+        outputs are unchanged, so ``rules`` (the reference's logical-axis
+        table, :func:`~repro_torch.distributed.sharding.snn_rules` by
+        default) places nothing.  Returns ``self`` for chaining.
+
+        ``assignment`` switches to **placement-driven** placement: a
+        :class:`repro_torch.placement.DeviceAssignment` (from
+        ``build_device_assignment`` on a placed, tiled network) pins each
+        projection's operands to the device its target tile landed on,
+        and is recorded in ``report.placement``.  A mesh, or an assignment
+        over more than one card, raises :class:`NotImplementedError`: the
+        port runs on one card.
+        """
+        if assignment is not None:
+            if len(assignment.proj_device) != len(self.metas):
+                raise ValueError(
+                    f"assignment covers {len(assignment.proj_device)} "
+                    f"projections; executable has {len(self.metas)}"
+                )
+            if assignment.n_devices > 1:
+                raise NotImplementedError(shardlib.MULTI_CARD_ITEM)
+            self.params = [
+                tuple(shardlib.placement_put(t, dev) for t in p)
+                for dev, p in zip(assignment.proj_device, self.params)
+            ]
+            # every operand built against the old placement goes
+            self._dense.clear()
+            self._sparse.clear()
+            self._temporal.clear()
+            self._nonneg.clear()
+            self._tplan = None
+            self._entries.clear()
+            if self.report is not None:
+                self.report.placement = assignment
+            return self
+        mesh = shardlib.snn_mesh() if mesh is None else mesh
+        if mesh is not None:
+            raise NotImplementedError(shardlib.MULTI_CARD_ITEM)
+        return self
+
     # -- launch paths --------------------------------------------------------
     def _inputs(self, spikes, valid_steps):
         spikes = torch.as_tensor(spikes, dtype=torch.float32, device=self.device)
@@ -785,9 +865,35 @@ class NetworkExecutable:
         """
         if not self.metas:
             return ()
+        return self._launch("fused", spikes, valid_steps, serial_form)
+
+    def run_batched(
+        self,
+        spikes,                    # (T, B, n_input) 0/1 — B = request axis
+        *,
+        valid_steps=None,          # (B,) true steps per request
+        serial_form: str = "auto",
+    ) -> Tuple[torch.Tensor, ...]:
+        """The explicit batched path over the request axis.
+
+        The reference vmaps width-1 scans, one per request; here the
+        batch axis is already written out in :func:`_scan_network`, so
+        this runs the same loop as :meth:`run_device` — one launch a
+        population and step for the whole batch, never one per lane —
+        and records its forms under ``report.serial_forms[("vmap", B)]``.
+        Same layout, masking contract and bits as :meth:`run_device`:
+        lanes with 0 valid steps emit exact zeros.  Serving uses this
+        path for full micro-batches.
+        """
+        if not self.metas:
+            return ()
+        return self._launch("vmap", spikes, valid_steps, serial_form)
+
+    def _launch(self, path, spikes, valid_steps, serial_form):
         spikes, valid_steps = self._inputs(spikes, valid_steps)
         forms = self.serial_forms(spikes.shape[1], serial_form)
-        self._record_forms("fused", spikes.shape[1], forms)
+        self._record_forms(path, spikes.shape[1], forms)
+        self._entries.add((path, forms, None))
         states = _init_graph_carry(
             self.plan, self.metas, spikes.shape[1], self.device
         )
@@ -844,6 +950,7 @@ class NetworkExecutable:
         forms = self.temporal_forms(batch, steps, serial_form)
         self._record_forms("temporal", batch, forms)
         cap = int(max_iters) if max_iters else steps + 1
+        self._entries.add(("temporal", forms, cap))
         tp = self._temporal_structure()
         states = (
             _init_graph_carry(tp.sub_plan, self.metas, batch, self.device)
@@ -875,10 +982,14 @@ class NetworkExecutable:
         *,
         valid_steps=None,
         serial_form: str = "auto",
+        batched: bool = False,
         temporal: bool = False,
     ) -> List[np.ndarray]:
         """Returns the per-projection spike trains [(T, B, n_l) ...]."""
-        launch = self.run_temporal if temporal else self.run_device
+        if temporal:
+            launch = self.run_temporal
+        else:
+            launch = self.run_batched if batched else self.run_device
         outs = launch(
             spikes, valid_steps=valid_steps, serial_form=serial_form
         )
@@ -957,18 +1068,24 @@ def _matches_network(exe: NetworkExecutable, net: SNNNetwork) -> bool:
 def network_executable(
     net: SNNNetwork,
     report: CompileReport,
+    model: str | None = None,
     *,
     device=None,
 ) -> NetworkExecutable:
     """The report's cached fused executable, (re)building when stale.
 
     A cached executable on another device than ``device`` counts as stale.
+    ``model`` tags the handle with the serving-layer model name it is
+    keyed under (multi-model pools route by this name); the tag survives
+    rebuilds.
     """
     dev = resolve_device(device)
     exe = report.executable
     if exe is None or exe.device != dev or not _matches_network(exe, net):
         exe = NetworkExecutable.build(net, report, device=dev)
         report.executable = exe
+    if model is not None:
+        exe.model = model
     return exe
 
 

@@ -51,7 +51,10 @@ def test_import_leaves_jax_and_repro_out():
         "for m in ('kernels.ssd_chunk.ops', 'kernels.ssd_chunk.ref',\n"
         "          'models.config', 'models.init', 'models.blocks',\n"
         "          'models.model', 'configs.registry', 'configs.mamba2_130m',\n"
-        "          'launch.serve'):\n"
+        "          'launch.serve', 'serving.engine', 'serving.pool',\n"
+        "          'serving.supervisor', 'serving.faults', 'placement.mapper',\n"
+        "          'placement.partition', 'placement.tiling',\n"
+        "          'distributed.sharding', 'distributed.fault_tolerance'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -67,7 +70,7 @@ def test_import_leaves_jax_and_repro_out():
     )
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25          # every subpackage was walked
+    assert n_modules >= 40          # every subpackage was walked
 
 
 def _imported_roots(path: Path):
@@ -127,6 +130,34 @@ def test_entry_points_raise_without_a_device(no_card):
     assert exe.device == torch.device("cpu")
     assert len(exe.run(spikes)) == 2
     assert len(exe.run(spikes, temporal=True)) == 2
+
+
+def test_serving_and_placement_raise_without_a_device(no_card):
+    """The serving engine and the device partition default to the card."""
+    from repro_torch.placement import (
+        CoreGrid, build_device_assignment, place_network, tile_network,
+    )
+    from repro_torch.serving import ExecutablePool, ServingEngine
+
+    net = _gesture_like()
+    report = SwitchingCompiler("ideal").compile_network(net)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(net, report)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExecutablePool()
+    assert report.executable is None
+    tiled = tile_network(net, max_neurons=8)
+    grid = CoreGrid(rows=2, cols=2)
+    placed = place_network(tiled, grid)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_device_assignment(placed, tiled, grid)
+    # asked for, the CPU runs
+    assert build_device_assignment(placed, tiled, grid, n_devices=1).is_identity
+    engine = ServingEngine(net, report, device="cpu")
+    assert engine.pool.device == torch.device("cpu")
+    rid = engine.submit(np.ones((3, 40), np.float32))
+    assert len(engine.drain()[rid]) == 2
+    assert report.executable.device == torch.device("cpu")
 
 
 def _meta(shape, dtype):

@@ -488,6 +488,99 @@ def test_gesture_on_card_equals_cpu(card, policy):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["serial", "parallel", "ideal"])
+def test_gesture_batched_on_card_equals_run_device(card, policy):
+    """``run_batched`` is the fused loop: on the card it gives run_device's
+    bits, launches the same kernels and waits for the card nowhere."""
+    net = feedforward_network([2048, 20, 4], density=0.0316, delay_range=1,
+                              seed=0)
+    for layer in net.layers:
+        layer.lif = LIFParams(alpha=0.5, v_th=64.0)
+    report = SwitchingCompiler(policy).compile_network(net)
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor((rng.random((30, 8, 2048)) < 0.2).astype(np.float32),
+                        device=card)
+    valid = torch.as_tensor([30, 0, 7, 30, 1, 12, 29, 0], device=card,
+                            dtype=torch.int32)
+    exe = network_executable(net, report, device=card)
+    counts = {}
+    for path in ("run_device", "run_batched"):
+        reset_launch_counts()
+        outs = getattr(exe, path)(x, valid_steps=valid)
+        assert bool(exe.last_check)
+        counts[path] = (launch_counts(), [z.clone() for z in outs])
+    assert counts["run_device"][0] == counts["run_batched"][0]
+    for a, b in zip(counts["run_device"][1], counts["run_batched"][1]):
+        assert torch.equal(a, b)
+        assert not b[:, 1].any() and not b[:, 7].any()
+    assert report.serial_forms[("vmap", 8)] == report.serial_forms[("fused", 8)]
+    assert sync_count(lambda: exe.run_batched(x, valid_steps=valid)) == 0
+
+
+def _engine_models():
+    """Two models of the gesture net (ideal-switched and all-parallel),
+    compiled afresh, so each device keeps its own executables."""
+    net = feedforward_network([2048, 20, 4], density=0.0316, delay_range=1,
+                              seed=0, name="gesture")
+    for layer in net.layers:
+        layer.lif = LIFParams(alpha=0.5, v_th=64.0)
+    return net, {p: SwitchingCompiler(p).compile_network(net)
+                 for p in ("ideal", "parallel")}
+
+
+def _engine_run(device, reqs):
+    from repro_torch.serving import ServingEngine
+
+    net, reports = _engine_models()
+    engine = ServingEngine(net, reports["ideal"], micro_batch=8,
+                           min_bucket_steps=8, device=device)
+    engine.warmup([5, 9, 17])             # buckets of 8, 16 and 32 steps
+    engine.register_model(net, reports["parallel"], "parallel-all",
+                          warm_steps=[5, 9, 17])
+    replies = {}
+    for i, (model, prio, x) in enumerate(reqs):
+        engine.submit(x, model=model, priority=prio)
+        if i % 5 == 4:
+            replies.update(engine.step_continuous())
+    replies.update(engine.drain())
+    return engine, replies
+
+
+@pytest.mark.cuda
+def test_engine_on_card_equals_engine_on_cpu(card):
+    """The serving engine on the card and on the CPU, same traffic: equal
+    replies and counters, and a fault-free run records no fault."""
+    rng = np.random.default_rng(2)
+    reqs = []
+    for _ in range(30):
+        width = int(rng.choice([2048, 1536, 1024]))
+        x = (rng.random((int(rng.integers(5, 33)), width)) < 0.2)
+        reqs.append(("parallel-all" if rng.random() < 0.3 else "default",
+                     int(rng.integers(0, 3)), x.astype(np.float32)))
+    reset_launch_counts()
+    gpu, on_card = _engine_run(card, reqs)
+    counts = launch_counts()
+    st = gpu.stats()             # before the CPU engine lowers its own
+    cpu, on_cpu = _engine_run("cpu", reqs)
+    assert on_card.keys() == on_cpu.keys() == set(range(len(reqs)))
+    for rid in on_cpu:
+        for a, b in zip(on_card[rid], on_cpu[rid]):
+            np.testing.assert_array_equal(a, b)
+    assert gpu.pool.counters_by_model() == cpu.pool.counters_by_model()
+    assert st["relowerings"] == 0 and st["bucket_misses"] == 0
+    assert st["failed"] == 0 and st["shed"] == 0
+    by = st["by_model"]
+    assert sum(c["batched_launches"] for c in by.values()) > 0
+    assert sum(c["fused_launches"] for c in by.values()) > 0
+    sup = st["supervisor"]
+    for k in ("retries", "degraded_launches", "validation_failures",
+              "quarantined", "watchdog_stalls", "bisections"):
+        assert sup[k] == 0, k
+    for k in ("lif_step", "spike_wdm_project", "sparse_gather"):
+        assert counts[k] > 0, k
+
+
 #: (G, Q, H, P, N): the reference's four TestSSDChunk shapes (G = 1), the
 #: batched path shape of a mamba2-130m prefill at batch 4 x 1024 tokens,
 #: and ragged edges (Q not a multiple of 64, P and N above one tile).
