@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Eight phases,
+``nvcc``; exits non-zero, printing no result, without them.  Nine phases,
 none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
@@ -90,6 +90,27 @@ none of which is caught and swallowed:
    same request, then prefill and decode are timed, with their device busy
    shares, and held against the float32 run.
 
+8. **The cerebellum scaffold** (``repro_torch.scaffold``) at 10,000 and
+   100,000 neurons, ``build_cerebellum(n, seed=2024)`` and
+   ``compile_scaffold``, not cut; its paradigms, forms and WDM and ELL
+   shapes must be the JAX package's.  The spec-rate two-input stimulus (64
+   steps, seed 7) through ``run_device`` at batch 1 (the event form) and 8,
+   ``run_batched``, ``shard()`` then ``run_device``, ``run_device`` with
+   ``valid_steps`` and ``run_temporal`` (refused at 10k, as by the
+   reference); each path's kernel launches counted around it alone and
+   held to what its steps and forms imply.  Every reply must equal the
+   port on the CPU on every lane and ``run_graph_reference`` (at 100k over
+   lanes 0 and 1 and the first 16 steps); ``run_temporal``'s passes and
+   residuals the CPU's.  At 10k ``profile_run`` on the card must equal the
+   CPU's; at 100k ``ServingEngine`` serves 16 two-input payloads (32-64
+   steps), every reply equal to its solo ``run_device``, with no
+   re-lowering, miss or supervisor fault.  Each path is timed (host and
+   device ms a launch, busy share, host waits, device operations a step
+   held to its projections' operations plus one ``lif_step`` a
+   population), and every kernel is held to its plain version and timed at
+   the scaffold's own operands beside its bound and a library call
+   (``torch._int_mm`` for K2, ``torch.sparse.mm`` for K3).
+
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
 the served micro-batch's time per step on both paths, each beside the
@@ -99,17 +120,21 @@ with the standalone K4), timed in turns in the same run, with the host
 waits of a launch counted; and the card's launch floor (an empty kernel,
 graph-replayed) beside ``lif_step``.
 
-The line before the card line is the ``kernels`` JSON object; the last line is
+The two lines before the card line are the ``scaffold`` and ``kernels`` JSON
+objects; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 import numpy as np
@@ -1480,6 +1505,723 @@ def time_serving(net, name, rep, batch, card):
           f"launches (old route {total_o:.3f} ms in {n_o}); top: {top}")
 
 
+# -- 8. the cerebellum scaffold ------------------------------------------------------
+#: benchmarks/bench_scaffold.py's full sizes and seed, not cut; the traffic:
+#: 64 steps at the spec's rates (mossy 0.08, climbing 0.02), seed 7
+SCAFFOLD_SIZES, SCAFFOLD_SEED = (10_000, 100_000), 2024
+SCAFFOLD_STEPS, SCAFFOLD_STIM_SEED = 64, 7
+#: a micro-batch of 8 with full, cut and empty lanes
+SCAFFOLD_VALID = (64, 40, 0, 64, 17, 64, 64, 1)
+#: run_graph_reference holds whole trains up to 10k neurons; above, lanes 0
+#: and 1 over their first 16 steps (the whole micro-batch would take minutes
+#: of host time)
+ORACLE_WHOLE, ORACLE_LANES, ORACLE_STEPS = 10_000, 2, 16
+#: the compile the JAX package gives at seed 2024: each parallel edge's WDM
+#: (M, K) and each serial edge's ELL (R, L) at batch 8 (every serial edge
+#: runs the sparse form at batch 8 and the event form at batch 1)
+SCAFFOLD_SHAPES = {
+    10_000: {
+        "wdm": {"mossy->granule": (8000, 650), "granule->golgi": (200, 7404),
+                "golgi->granule": (8000, 200), "granule->purkinje": (250, 7911),
+                "granule->basket_stellate": (800, 8000)},
+        "ell": {"mossy->golgi": (600, 22), "basket_stellate->purkinje": (750, 20),
+                "climbing->purkinje": (500, 5)},
+    },
+    100_000: {
+        "wdm": {"mossy->golgi": (2000, 6489), "climbing->purkinje": (2500, 917)},
+        "ell": {"mossy->granule": (240_000, 11), "granule->golgi": (8000, 57),
+                "golgi->granule": (240_000, 10), "granule->purkinje": (12_500, 62),
+                "granule->basket_stellate": (32_000, 62),
+                "basket_stellate->purkinje": (7500, 25)},
+    },
+}
+#: the engine's traffic at 100k: 16 requests of 32-64 steps, micro-batch 8
+SCAFFOLD_ENGINE = dict(n_requests=16, lo=32, hi=64, seed=11)
+CARD = "cuda"
+
+
+def timed_compile(sc):
+    """compile_scaffold and its seconds (run in a worker process)."""
+    from repro_torch.scaffold import compile_scaffold
+
+    t0 = time.perf_counter()
+    return compile_scaffold(sc), time.perf_counter() - t0
+
+
+def scaffold_compile(n, sc, t_build, compiled):
+    """The report ``compiled`` brings (compile_scaffold in a worker); the
+    card's executable; the paradigms, forms and operand shapes held to the
+    JAX package's compile."""
+    from repro_torch.core.runtime import network_executable
+
+    rep, t_compile = compiled.result()
+    net = sc.network
+    exe = network_executable(net, rep, device=CARD)
+    f1, f8 = exe.serial_forms(1), exe.serial_forms(MICRO_BATCH)
+    names = [e.name for e in net.projections]
+    wdm = {names[i]: tuple(exe.params[i][0].shape)
+           for i, m in enumerate(exe.metas) if m.paradigm == "parallel"}
+    ell = {names[i]: tuple(exe._sparse_param(i)[0].shape)
+           for i, f in enumerate(f8) if f == "sparse"}
+    serial = [m.paradigm == "serial" for m in exe.metas]
+    require(wdm == SCAFFOLD_SHAPES[n]["wdm"] and ell == SCAFFOLD_SHAPES[n]["ell"],
+            f"scaffold {n}: WDM {wdm}, ELL {ell}; the reference's compile gives "
+            f"{SCAFFOLD_SHAPES[n]}")
+    require(all((f == "event") == s for f, s in zip(f1, serial))
+            and all((f == "sparse") == s for f, s in zip(f8, serial)),
+            f"scaffold {n}: forms {f1} at batch 1, {f8} at batch 8")
+    print(f"scaffold {n}: {sc.total_neurons} neurons {sc.sizes}, "
+          f"{sc.total_synapses} synapses; build {t_build:.1f} s, compile "
+          f"{t_compile:.1f} s on the host (in a worker); paradigms "
+          f"{dict(zip(names, (l.paradigm for l in rep.layers)))}; forms at batch "
+          f"1 {f1}, at batch 8 {f8}; WDM (M, K) {wdm}; ELL (R, L) {ell}")
+    return rep, exe, {"build_s": t_build, "compile_s": t_compile,
+                          "synapses": sc.total_synapses,
+                          "paradigms": [l.paradigm for l in rep.layers],
+                          "forms_b1": list(f1), "forms_b8": list(f8)}
+
+
+def scaffold_want(exe, forms, steps, temporal=False):
+    """Kernel launches a launch implies: per step one lif_step a population,
+    the fused K2 a parallel edge, K3 a sparse edge; on the temporal path the
+    step-serial block's alone per step, plus one K3 a whole-train sparse
+    projection and one fused K4 an iterative population."""
+    want = {k: 0 for k in REPLACES}
+    plan = exe.plan
+    pops = plan.update_order
+    if temporal:
+        tp = exe._temporal_structure()
+        pops = tp.block
+        want["lif_fixed_point"] = list(tp.modes.values()).count("iterative")
+        want["sparse_gather"] = forms.count("temporal_sparse")
+    block = set(pops)
+    edges = [f for i, f in enumerate(forms) if plan.proj_tgt[i] in block]
+    want["lif_step"] = steps * len(pops)
+    want["spike_wdm_project"] = steps * edges.count("-")
+    want["sparse_gather"] += steps * edges.count("sparse")
+    return want
+
+
+def temporal_refused(exe):
+    """The parallel projections onto whole-train populations whose dense
+    (d_slots, S, T) operand passes the element cap: the reference's
+    run_temporal refuses the graph when there is one."""
+    tp = exe._temporal_structure()
+    block = set(tp.block)
+    return {i: (m.delay_range + 1) * m.n_source * m.n_target
+            for i, m in enumerate(exe.metas)
+            if m.paradigm == "parallel" and exe.plan.proj_tgt[i] not in block
+            and not exe.cost_model.dense_fits(m.n_source, m.n_target,
+                                              m.delay_range)}
+
+
+def scaffold_serve(n, sc, rep, exe, x1, x8, vs):
+    """Every path on the card, its kernel launches counted around it alone
+    and held to what the launch implies: run_device at batch 1 (the event
+    form) and 8, run_batched, shard() then run_device, run_device with
+    valid_steps, and run_temporal (refused at 10k, as by the reference: a
+    whole-train parallel operand there passes the dense cap).  Returns the
+    replies as host arrays and the launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    paths = {
+        "run_device_b1": (lambda: exe.run_device(x1), 1, False),
+        "run_device": (lambda: exe.run_device(x8), MICRO_BATCH, False),
+        "run_batched": (lambda: exe.run_batched(x8), MICRO_BATCH, False),
+        "shard_run_device": (lambda: exe.shard().run_device(x8), MICRO_BATCH, False),
+        "valid_steps": (lambda: exe.run_device(x8, valid_steps=vs), MICRO_BATCH,
+                        False),
+        "run_temporal": (lambda: exe.run_temporal(x8), MICRO_BATCH, True),
+    }
+    served, counts = {}, {}
+    for name, (launch, batch, temporal) in paths.items():
+        if temporal:
+            try:
+                forms = exe.temporal_forms(batch, SCAFFOLD_STEPS)
+            except ValueError as err:
+                too_large = temporal_refused(exe)
+                require(bool(too_large) and "dense operand" in str(err),
+                        f"scaffold {n}: run_temporal refused: {err}")
+                print(f"scaffold {n}: run_temporal refused as the reference "
+                      f"refuses it ({err}): whole-train parallel operands "
+                      f"{too_large} pass the {exe.cost_model.dense_element_cap}-"
+                      "element cap")
+                continue
+        else:
+            forms = exe.serial_forms(batch)
+        reset_launch_counts()
+        outs = launch()
+        c = launch_counts()
+        require(bool(exe.last_check), f"scaffold {n} {name}: last_check is False")
+        want = scaffold_want(exe, forms, SCAFFOLD_STEPS, temporal)
+        got = {k: c[k] for k in want}
+        require(got == want, f"scaffold {n} {name}: launches {got}, the launch "
+                f"implies {want}")
+        served[name] = [z.cpu().numpy() for z in outs]
+        counts[name] = got
+        if temporal:
+            served["temporal_record"] = rep.temporal[(batch, SCAFFOLD_STEPS)]
+    ref = served["run_device"]
+    for name in ("run_batched", "shard_run_device", "run_temporal"):
+        if name in served:
+            require(all(np.array_equal(a, b) for a, b in zip(served[name], ref)),
+                    f"scaffold {n}: {name} differs from run_device")
+    for z, r in zip(served["valid_steps"], ref):
+        for b, v in enumerate(vs):
+            require(np.array_equal(z[:v, b], r[:v, b]) and not z[v:, b].any(),
+                    f"scaffold {n}: valid_steps lane {b} is not run_device's "
+                    f"first {v} steps and zeros")
+    require(sum(float(z.sum()) for z in ref) > 0, f"scaffold {n}: silent")
+    print(f"scaffold {n}: launches by path {counts}, each as its steps and "
+          "forms imply; run_batched, shard() + run_device and run_temporal "
+          "bitwise equal to run_device, valid_steps lanes its prefixes and zeros")
+    return served, counts
+
+
+def scaffold_hold_cpu(n, net, rep, x1, x8, vs, served):
+    """Every path's replies against the port on the CPU (the kernels' plain
+    versions), every lane; run_temporal's passes and residuals too."""
+    from repro_torch.core.runtime import NetworkExecutable
+
+    t0 = time.perf_counter()
+    cpu = NetworkExecutable.build(net, rep, device="cpu")
+    runs = {"run_device_b1": lambda: cpu.run(x1),
+            "run_device": lambda: cpu.run(x8),
+            "run_batched": lambda: cpu.run(x8, batched=True),
+            "shard_run_device": lambda: cpu.shard().run(x8),
+            "valid_steps": lambda: cpu.run(x8, valid_steps=vs),
+            "run_temporal": lambda: cpu.run(x8, temporal=True)}
+    for name, run in runs.items():
+        if name not in served:
+            continue
+        for z, c in zip(served[name], run()):
+            require(np.array_equal(z, c), f"scaffold {n} {name}: card and CPU differ")
+    rec = served.get("temporal_record")
+    if rec is not None:
+        cpu_rec = rep.temporal[(MICRO_BATCH, SCAFFOLD_STEPS)]
+        require(rec == cpu_rec and all(r == 0 for r in rec.residual.values()),
+                f"scaffold {n}: temporal record {rec}, CPU {cpu_rec}")
+    secs = time.perf_counter() - t0
+    print(f"scaffold {n}: every path bit-identical to the port on the CPU, every "
+          f"lane ({secs:.1f} s of CPU)"
+          + (f"; run_temporal split {rec.split}, modes {rec.modes}, passes "
+             f"{rec.iterations}, residual {rec.residual}, equal to the CPU's"
+             if rec is not None else ""))
+    return secs
+
+
+def timed_oracle(net, x):
+    """run_graph_reference and its seconds (run in the oracle's worker)."""
+    from repro_torch.core.runtime import run_graph_reference
+
+    t0 = time.perf_counter()
+    return run_graph_reference(net, x), time.perf_counter() - t0
+
+
+def scaffold_oracle(pool, n, net, x1, x8):
+    """Start run_graph_reference in a worker process: whole trains up to
+    10k neurons; above, lanes 0 and 1 over their first 16 steps.  One call
+    takes the batch-8 lanes and the batch-1 train as one more lane: the
+    oracle's cost is its dense weights (~25 GB at 100k), whatever the
+    batch.  Returns the future and the (lanes, steps) it covers."""
+    lanes, steps = ((MICRO_BATCH, SCAFFOLD_STEPS) if n <= ORACLE_WHOLE
+                    else (ORACLE_LANES, ORACLE_STEPS))
+    x = np.concatenate([x8[:steps, :lanes], x1[:steps]], axis=1)
+    return pool.submit(timed_oracle, net, x), (lanes, steps)
+
+
+def scaffold_hold_oracle(n, oracle, vs, served):
+    """Every path against run_graph_reference over the oracle's lanes and
+    steps (the batch-1 train is its last lane); valid_steps lanes against
+    its prefixes and zeros."""
+    future, (lanes, steps) = oracle
+    both, secs = future.result()
+    want8, want1 = [o[:, :lanes] for o in both], [o[:, lanes:] for o in both]
+    for name, outs in served.items():
+        if name == "temporal_record":
+            continue
+        want = want1 if name == "run_device_b1" else want8
+        for z, o in zip(outs, want):
+            z = z[:steps, :lanes]
+            if name == "valid_steps":
+                live = np.asarray(vs[:lanes])[None, :, None] > np.arange(steps)[:, None, None]
+                o = o * live
+            require(np.array_equal(z, o),
+                    f"scaffold {n} {name}: differs from run_graph_reference")
+    print(f"scaffold {n}: every path bit-identical to run_graph_reference over "
+          f"lanes 0..{lanes - 1} and steps 0..{steps - 1} (the oracle took "
+          f"{secs:.1f} s of host time in a worker process, beside the card's "
+          "work)")
+    return secs, (lanes, steps)
+
+
+def scaffold_profile(n, sc, rep, x8):
+    """profile_run on the card against profile_run on the CPU, same train;
+    the rates beside BENCH_network.json's (the JAX package on the CPU, 10
+    steps at batch 1)."""
+    from repro_torch.core.runtime import profile_run
+
+    _, on_cpu = profile_run(sc.network, rep, x8, device="cpu")
+    outs, prof = profile_run(sc.network, rep, x8, device=CARD)
+    require(rep.activity is prof, "profile_run did not attach its profile")
+    require(prof.as_dict() == on_cpu.as_dict(),
+            f"scaffold {n}: the card's profile {prof.as_dict()} differs from "
+            f"the CPU's {on_cpu.as_dict()}")
+    rates = prof.rates()
+    bench = json.loads((SRC.parent / "BENCH_network.json").read_text())
+    jax_cpu = bench["scaffold_scale"]["sizes"].get(str(n), {})
+    t, c = prof.peak("granule")
+    print(f"scaffold {n}: profile_run on the card equals the CPU's; rates "
+          f"{ {k: round(v, 5) for k, v in rates.items()} }, granule peak "
+          f"{c} spikes at t {t} (batch 8, 64 steps); the JAX package on the CPU "
+          f"(BENCH_network.json, batch 1, 10 steps): rates "
+          f"{jax_cpu.get('rates')}, granule peak {jax_cpu.get('peak_granule')}")
+    return {"rates": rates, "peak_granule": {"t": t, "count": c},
+            "jax_cpu_rates": jax_cpu.get("rates")}
+
+
+#: device operations of one event-form update (serial_runtime.serial_update):
+#: the index cast, the gather, the product, the slot's add and floor-mod,
+#: the segment's product and add, the batch-offset arange and its product
+#: and add, the zero fill and index_add_
+EVENT_OPS = 12
+#: device operations of a projection's step by form: the fused K2 and the
+#: ring write a parallel edge, K3 a sparse edge, PyTorch's own operations an
+#: event-form update
+FORM_OPS = {"-": 2, "sparse": 1, "event": EVENT_OPS}
+
+
+def profiled_counts(launch):
+    """Device operations of one launch by kernel name, each the largest of
+    three profiles (the profiler can drop activity records, never add)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            launch()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.self_cpu_time_total == 0 and e.self_device_time_total > 0:
+                best[e.key] = max(best.get(e.key, 0), e.count)
+    return best
+
+
+def ops_a_step(launch, steps, half):
+    """Device operations a step: each kernel's count at ``steps`` less its
+    count at ``half`` steps, over the steps between.  A kernel that runs
+    every step differs by at least that many; one that differs by fewer
+    runs once a launch a number of times that depends on the train's size
+    (a large reduction's extra pass in the output check), so it is no
+    step's and is returned apart, with its difference."""
+    full, short = profiled_counts(lambda: launch(steps)), profiled_counts(
+        lambda: launch(half))
+    per_step, varying = 0.0, {}
+    for key in set(full) | set(short):
+        diff = full.get(key, 0) - short.get(key, 0)
+        if abs(diff) >= steps - half:
+            per_step += diff / (steps - half)
+        elif diff:
+            varying[key[:60]] = diff
+    return per_step, varying
+
+
+def scaffold_time(n, exe, x1, x8, vs, card):
+    """For each path: host ms a launch (ends in a sync), device ms a launch
+    (graph replay; the profiler for run_temporal, whose launch reads the
+    passes back), µs a step, busy share and host waits; for run_device and
+    run_batched the device operations a step from the profiler at two train
+    lengths (each the largest of three profiles), held to the projections'
+    operations plus one lif_step a population, with no host wait."""
+    xs1, xs8 = (torch.as_tensor(x, device=CARD) for x in (x1, x8))
+    vs_t = torch.as_tensor(vs, device=CARD)
+    steps, half = SCAFFOLD_STEPS, SCAFFOLD_STEPS // 2
+    paths = {
+        "run_device_b1": (xs1, lambda k=steps: exe.run_device(xs1[:k])),
+        "run_device": (xs8, lambda k=steps: exe.run_device(xs8[:k])),
+        "run_batched": (xs8, lambda k=steps: exe.run_batched(xs8[:k])),
+        "valid_steps": (xs8, lambda k=steps: exe.run_device(xs8, valid_steps=vs_t)),
+    }
+    if not temporal_refused(exe):
+        paths["run_temporal"] = (xs8, lambda k=steps: exe.run_temporal(xs8))
+    n_pops = len(exe.plan.update_order)
+    rows = {}
+    for name, (xs, launch) in paths.items():
+        host = host_ms(launch, reps=5)
+        waits = sync_count(launch)
+        if name == "run_temporal":
+            dev, n_dev, top = profiled_ms(launch)
+        else:
+            dev = device_ms(launch, iters=1, replays=5)
+            _, n_dev, top = profiled_ms(launch)
+        row = {"host_ms": host, "device_ms": dev, "us_per_step": host / steps * 1e3,
+               "busy": dev / host, "host_waits": waits, "device_launches": n_dev}
+        extra = ""
+        if name in ("run_device_b1", "run_device", "run_batched"):
+            ops, varying = ops_a_step(launch, steps, half)
+            by_edge = [FORM_OPS[f] for f in exe.serial_forms(xs.shape[1])]
+            want = sum(by_edge) + n_pops
+            require(ops == want and waits == 0,
+                    f"scaffold {n} {name}: {ops} device operations a step and "
+                    f"{waits} host waits; want {want} (edges {by_edge}, lif_step "
+                    f"{n_pops}) and none")
+            row.update(ops_per_step=ops, ops_by_edge=by_edge,
+                       launch_ops_varying=varying)
+            extra = (f", device operations a step {ops:g} (edges {by_edge}, "
+                     f"lif_step {n_pops})"
+                     + (f"; per-launch operations that vary with the train's "
+                        f"length: {varying}" if varying else ""))
+        rows[name] = row
+        print(f"scaffold timing [{card}]: {n} {name}: host {host:.3f} ms a launch "
+              f"({row['us_per_step']:.1f} us a step), device {dev:.3f} ms, busy "
+              f"share {row['busy']:.3f}, host waits {waits}, device launches "
+              f"{n_dev}{extra}; top: {top}")
+    return rows
+
+
+def kernel_time(kernel, plain, library, n_bytes, n_ops, ops_rate, iters=100,
+                plain_reads_host=False):
+    """Device ms a call (graph replay) of a kernel, its plain version and a
+    library call, beside the bound; a plain version that reads the host is
+    timed eagerly, its host waits included."""
+    b, by = bound_ms(n_bytes, n_ops, ops_rate)
+    return {"ms": device_ms(kernel, iters=iters),
+            "plain_ms": (eager_ms(plain, iters=3, warmup=1) if plain_reads_host
+                         else device_ms(plain, iters=max(1, iters // 5))),
+            "library_ms": None if library is None else device_ms(library, iters=iters),
+            "bound_ms": b, "bound_by": by}
+
+
+def scaffold_kernels(n, exe, x8, card):
+    """Every kernel at the shapes this size's paths give it, held to its
+    plain version and timed beside its bound and a library call: the fused
+    K2 a parallel edge (compiled operands, ring at batch 8; library
+    torch._int_mm on the same product, zero-padded), K3 a sparse edge
+    (compiled ELL, batch 8 through the step's transposed view; library
+    torch.sparse.mm), K1's population step each population at batch 8,
+    the fused K4 at run_temporal's (T, B.N) trains, and the event form's
+    update and its index_add_ at batch 1."""
+    from repro_torch.core.runtime.serial_runtime import serial_update
+    from repro_torch.kernels.lif_parallel_scan import (
+        lif_fixed_point, lif_fixed_point_launch, lif_fixed_point_ref,
+    )
+    from repro_torch.kernels.lif_update import lif_step, lif_step_ref
+    from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
+    from repro_torch.kernels.spike_wdm_matmul import (
+        spike_wdm_project, spike_wdm_project_ref,
+    )
+
+    plan, rows = exe.plan, []
+    gen = torch.Generator(device=CARD).manual_seed(n)
+
+    def spikes(shape, p=0.1):
+        return (torch.rand(shape, generator=gen, device=CARD) < p)
+
+    def gather_time(val, idx, x, **kw):
+        # library: the same ELL as one CSR sparse x dense product on the
+        # spikes made contiguous (its best case); bytes: the ELL read once,
+        # of x only the rows the ELL indexes, the output written once
+        r, lanes = val.shape
+        nz = val != 0
+        rows_i = torch.arange(r, device=CARD)[:, None].expand(r, lanes)[nz]
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows_i, idx[nz].long()]), val[nz], (r, x.shape[0])
+        ).coalesce().to_sparse_csr()
+        xc, cols = x.contiguous(), x.shape[1]
+        n_bytes = (8 * r * lanes + 4 * int(torch.unique(idx).numel()) * cols
+                   + 4 * r * cols)
+        return kernel_time(lambda: sparse_gather(val, idx, x),
+                           lambda: sparse_gather_ref(val, idx, x),
+                           lambda: torch.sparse.mm(csr, xc),
+                           n_bytes, 2 * int(nz.sum()) * cols, F32_OPS_S, **kw)
+
+    def row(kernel, edge, shape, t, err):
+        t.update(name=kernel, size=n, edge=edge, shape=shape, max_abs_err=err)
+        rows.append(t)
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.5f}"
+        print(f"scaffold kernel [{card}]: {n} {kernel} {edge} {shape}: "
+              f"{t['ms']:.5f} ms (plain {t['plain_ms']:.5f}, library {lib}; "
+              f"bound {t['bound_ms']:.6f} ms by {t['bound_by']}, kernel at "
+              f"{t['bound_ms'] / t['ms']:.3f} of it), max |diff| {err}")
+
+    forms = exe.serial_forms(MICRO_BATCH)
+    for i, (meta, form) in enumerate(zip(exe.metas, forms)):
+        edge = exe.report.layers[i].layer_name
+        if form == "-":
+            wdm, src, dly = exe.params[i]
+            m, k = wdm.shape
+            depth = meta.ring_depth
+            ring = spikes((MICRO_BATCH, depth, meta.n_source)).to(torch.int8)
+            err = 0.0
+            for t in range(2 * depth + 1):
+                out = spike_wdm_project(wdm, src, dly, ring, t)
+                ref = spike_wdm_project_ref(wdm, src, dly, ring, t)
+                require(torch.equal(out, ref), f"scaffold {n}: spike_wdm_project "
+                        f"differs on {edge}")
+                err = max(err, max_abs_diff(out, ref))
+            t_step = depth + 1
+            addr = ((t_step - dly.long()) % depth) * meta.n_source + src.long()
+            stacked = ring.reshape(MICRO_BATCH, -1)[:, addr]          # (B, K)
+            mp, kp = max(m, 17), -(-k // 8) * 8
+            ap = torch.zeros((mp, kp), dtype=torch.int8, device=CARD)
+            xp = torch.zeros((kp, 8), dtype=torch.int8, device=CARD)
+            ap[:m, :k], xp[:k, :MICRO_BATCH] = wdm, stacked.T
+            n_bytes = (m * k + 8 * k + MICRO_BATCH * int(torch.unique(addr).numel())
+                       + 4 * MICRO_BATCH * m)
+            t = kernel_time(
+                lambda: spike_wdm_project(wdm, src, dly, ring, t_step),
+                lambda: spike_wdm_project_ref(wdm, src, dly, ring, t_step),
+                lambda: torch._int_mm(ap, xp),
+                n_bytes, 2 * m * k * MICRO_BATCH, INT8_OPS_S,
+            )
+            row("spike_wdm_project", edge, [m, k, MICRO_BATCH, depth], t, err)
+        elif form == "sparse":
+            val, idx = exe._sparse_param(i)
+            r, lanes = val.shape
+            x = spikes((MICRO_BATCH, meta.n_source)).float().t()
+            out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
+            require(torch.equal(out, ref), f"scaffold {n}: sparse_gather differs "
+                    f"on {edge}")
+            t = gather_time(val, idx, x)
+            row("sparse_gather", edge, [r, lanes, meta.n_source, MICRO_BATCH], t,
+                max_abs_diff(out, ref))
+    for p in plan.update_order:
+        edges = plan.in_edges[p]
+        kinds = tuple("current" if forms[i] == "-" else forms[i] for i in edges)
+        d_slots = max([exe.metas[i].delay_range + 1 for i in edges
+                       if forms[i] != "-"], default=2)
+        size = plan.pop_sizes[p]
+        ops = step_inputs(kinds, MICRO_BATCH, size, d_slots, 5, p, 0.5)
+        want = clone_step(ops)
+        lif_step(*ops[:4], 5, alpha=0.5, v_th=ops[4])
+        lif_step_ref(*want[:4], 5, alpha=0.5, v_th=want[4])
+        err = step_diff(ops, want)
+        require(err == 0.0, f"scaffold {n}: lif_step differs at population {p}")
+        plain = clone_step(ops)
+        rings = [e.ring.shape[0] for e in ops[0] if hasattr(e, "ring")]
+        per = 4 * (len(kinds) - len(rings)) + 12 * sum(rings) + 14
+        flops = sum(rings) + len(kinds) - 1 + 5
+        t = kernel_time(lambda: lif_step(*ops[:4], 5, alpha=0.5, v_th=ops[4]),
+                        lambda: lif_step_ref(*plain[:4], 5, alpha=0.5, v_th=ops[4]),
+                        None, per * MICRO_BATCH * size, flops * MICRO_BATCH * size,
+                        F32_OPS_S)
+        row("lif_step", f"population {p}", [list(kinds), MICRO_BATCH, size, d_slots],
+            t, err)
+    if not temporal_refused(exe):
+        for i_flat, kw in path_fixed_points(exe, x8, None):
+            z, iters, res = lif_fixed_point(i_flat, **kw)
+            zr, iters_r, res_r = lif_fixed_point_ref(i_flat, **kw)
+            require(torch.equal(z, zr) and (iters, res) == (iters_r, res_r),
+                    f"scaffold {n}: lif_fixed_point differs at {tuple(i_flat.shape)}")
+            steps, feat = i_flat.shape
+            passes = int(column_passes(i_flat, **kw).sum())
+            t = kernel_time(lambda: lif_fixed_point_launch(i_flat, **kw),
+                            lambda: lif_fixed_point_ref(i_flat, **kw), None,
+                            8 * steps * feat, 4 * steps * passes, F32_OPS_S, iters=10,
+                            plain_reads_host=True)
+            row("lif_fixed_point", f"{iters} passes", [steps, feat], t, 0.0)
+        # K3 over run_temporal's T.B columns, read through the strided view
+        # of the (T, B, S) train, beside a source-major copy then the gather
+        cols = SCAFFOLD_STEPS * MICRO_BATCH
+        for i, form in enumerate(exe.temporal_forms(MICRO_BATCH, SCAFFOLD_STEPS)):
+            if form != "temporal_sparse":
+                continue
+            val, idx = exe._sparse_param(i)
+            n_src = exe.metas[i].n_source
+            view = spikes((SCAFFOLD_STEPS, MICRO_BATCH, n_src)).float().permute(
+                2, 0, 1).reshape(n_src, cols)
+            out, ref = sparse_gather(val, idx, view), sparse_gather_ref(val, idx, view)
+            require(torch.equal(out, ref), f"scaffold {n}: sparse_gather differs "
+                    f"over the temporal columns")
+            err = max_abs_diff(out, ref)
+            del ref                      # the plain version's (R, L, T.B) gather
+            t = gather_time(val, idx, view, iters=10, plain_reads_host=True)
+            t["copy_then_gather_ms"] = device_ms(
+                lambda: sparse_gather(val, idx, view.contiguous()), iters=10)
+            row("sparse_gather", exe.report.layers[i].layer_name + " (temporal)",
+                [*val.shape, n_src, cols], t, err)
+            print(f"scaffold kernel [{card}]: {n} sparse_gather over the temporal "
+                  f"columns: a source-major copy then the gather "
+                  f"{t['copy_then_gather_ms']:.5f} ms against {t['ms']:.5f} ms "
+                  "from the strided view")
+    event = []
+    for i, form in enumerate(exe.serial_forms(1)):
+        if form != "event":
+            continue
+        meta = exe.metas[i]
+        x_t = spikes((1, meta.n_source)).float()
+        w, d, s, tg = exe.params[i]
+        upd = functools.partial(serial_update, w, d, s, tg, x_t, 3,
+                                delay_range=meta.delay_range, n_target=meta.n_target)
+        seg = (((d + 3) % (meta.delay_range + 1)) * meta.n_target + tg).long()
+        contrib = x_t[:, s.long()].reshape(-1) * w
+        buf = torch.zeros((meta.delay_range + 1) * meta.n_target, device=CARD)
+        ms_upd = device_ms(upd)
+        ms_add = device_ms(functools.partial(buf.index_add_, 0, seg, contrib))
+        edge = exe.report.layers[i].layer_name
+        event.append({"size": n, "edge": edge, "rows": int(w.numel()),
+                      "update_ms": ms_upd, "index_add_ms": ms_add})
+        print(f"scaffold kernel [{card}]: {n} event form {edge} at batch 1 "
+              f"({int(w.numel())} synapse rows): update {ms_upd:.5f} ms, its "
+              f"index_add_ {ms_add:.5f} ms")
+    return rows, event
+
+
+def scaffold_engine(sc, rep, exe, card):
+    """ServingEngine over the 100k report: 16 concatenated two-input
+    payloads of 32-64 steps from the spec-rate stimulus, micro-batch 8,
+    warmed before they come in.  Every reply must equal the request's solo
+    run_device on the card; no re-lowering, miss or supervisor fault; the
+    kernels launched as the launches' steps imply; a payload of the wrong
+    width refused."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import FailedReply, ServingEngine
+
+    cfg = SCAFFOLD_ENGINE
+    net = sc.network
+    rng = np.random.default_rng(cfg["seed"])
+    lengths = rng.integers(cfg["lo"], cfg["hi"] + 1, cfg["n_requests"])
+    pool = sc.stimulus(cfg["hi"], cfg["n_requests"], seed=cfg["seed"])
+    reqs = [np.ascontiguousarray(pool[:k, i]) for i, k in enumerate(lengths)]
+    t0 = time.perf_counter()
+    engine = ServingEngine(net, rep, micro_batch=MICRO_BATCH, min_bucket_steps=8)
+    warmed = engine.warmup(list(range(cfg["lo"], cfg["hi"] + 1)))
+    t_warm = time.perf_counter() - t0
+    launched = []
+    run = engine.pool.run_microbatch
+
+    def recorded(mb, name=None, **kw):
+        launched.append(mb.key.steps)
+        return run(mb, name, **kw)
+
+    engine.pool.run_microbatch = recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [engine.submit(r) for r in reqs]
+    replies = engine.drain()
+    t_serve = time.perf_counter() - t0
+    counts = launch_counts()
+    st = engine.stats()
+    sup = st["supervisor"]
+    require(st["relowerings"] == 0 and st["bucket_misses"] == 0,
+            f"scaffold engine: {st['relowerings']} re-lowerings, "
+            f"{st['bucket_misses']} misses after warmup")
+    for k in ("retries", "degraded_launches", "validation_failures",
+              "quarantined", "watchdog_stalls", "bisections"):
+        require(sup[k] == 0, f"scaffold engine: supervisor counted {sup[k]} {k}")
+    require(st["failed"] == 0 and st["shed"] == 0,
+            f"scaffold engine: {st['failed']} failed, {st['shed']} shed")
+    forms = exe.serial_forms(MICRO_BATCH)
+    want = {"lif_step": 0, "spike_wdm_project": 0, "sparse_gather": 0}
+    for steps in launched:
+        want["lif_step"] += steps * len(exe.plan.update_order)
+        want["spike_wdm_project"] += steps * forms.count("-")
+        want["sparse_gather"] += steps * forms.count("sparse")
+    require({k: counts[k] for k in want} == want,
+            f"scaffold engine: launches {counts}, the {len(launched)} launches "
+            f"imply {want}")
+    for rid, r in zip(rids, reqs):
+        reply = replies[rid]
+        require(not isinstance(reply, FailedReply), f"scaffold engine: {rid} failed")
+        solo = exe.run(r[:, None, :])
+        for z, s in zip(reply, solo):
+            require(np.array_equal(z, s[:, 0]),
+                    f"scaffold engine: reply {rid} differs from its solo run")
+    try:
+        engine.submit(np.zeros((4, net.n_input + 3), np.float32))
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("scaffold engine: a payload of the wrong width was taken")
+    by = st["by_model"]
+    out = {"requests": len(reqs), "launches": len(launched),
+           "batched": sum(c["batched_launches"] for c in by.values()),
+           "fused": sum(c["fused_launches"] for c in by.values()),
+           "hits": st["bucket_hits"], "misses": st["bucket_misses"],
+           "relowerings": st["relowerings"], "faults": 0,
+           "warmup_s": t_warm, "serve_s": t_serve, "kernel_launches": want}
+    print(f"scaffold engine [{card}]: {len(reqs)} two-input payloads (steps "
+          f"{sorted(int(k) for k in lengths)}, width {net.n_input}) served in "
+          f"{t_serve:.3f} s by {len(launched)} launches (batched {out['batched']}, "
+          f"fused {out['fused']}) after {warmed} bucket shapes warmed in "
+          f"{t_warm:.1f} s; every reply bit-identical to its solo run_device on "
+          f"the card; hits {st['bucket_hits']}, misses {st['bucket_misses']}, "
+          f"re-lowerings {st['relowerings']}, supervisor faults 0; kernel "
+          f"launches {want} as the launches' steps imply; a payload of width "
+          f"{net.n_input + 3} refused")
+    return out, counts
+
+
+def scaffold_phase(card):
+    """Phase 8: the cerebellum scaffold at 10k and 100k neurons through
+    every path, the profiler (10k) and the engine (100k), held to the port
+    on the CPU and to run_graph_reference; then timed.  Returns the launch
+    counts of its paths and the ``scaffold`` JSON object."""
+    from repro_torch.scaffold import build_cerebellum
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in REPLACES}
+    out = {"card": card, "sizes": {}, "kernels": [], "event": []}
+    built = {}
+    for n in SCAFFOLD_SIZES:
+        t0 = time.perf_counter()
+        sc = build_cerebellum(n, seed=SCAFFOLD_SEED)
+        built[n] = (sc, time.perf_counter() - t0,
+                    sc.stimulus(SCAFFOLD_STEPS, 1, seed=SCAFFOLD_STIM_SEED),
+                    sc.stimulus(SCAFFOLD_STEPS, MICRO_BATCH, seed=SCAFFOLD_STIM_SEED))
+    # the compiles and the oracles (minutes of host time at 100k) run in
+    # worker processes beside the card's work
+    with ProcessPoolExecutor(3, mp_context=get_context("spawn")) as pool:
+        compiles = {n: pool.submit(timed_compile, built[n][0])
+                    for n in SCAFFOLD_SIZES}
+        oracles = {n: scaffold_oracle(pool, n, b[0].network, b[2], b[3])
+                   for n, b in built.items()}
+        for n in SCAFFOLD_SIZES:
+            scaffold_size(n, built.pop(n), compiles.pop(n), oracles.pop(n),
+                          card, total, out)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"scaffold: phase took {out['seconds']:.1f} s")
+    return total, out
+
+
+def scaffold_size(n, built, compiled, oracle, card, total, out):
+    """One size of phase 8; its launch counts add into ``total`` and its
+    numbers into ``out``."""
+    from repro_torch.core.runtime import release_network_executable
+
+    t_size = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sc, t_build, x1, x8 = built
+    rep, exe, info = scaffold_compile(n, sc, t_build, compiled)
+    vs = np.asarray(SCAFFOLD_VALID, np.int32)
+    served, counts = scaffold_serve(n, sc, rep, exe, x1, x8, vs)
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] += v
+    info["launches"] = counts
+    info["paths"] = scaffold_time(n, exe, x1, x8, vs, card)
+    rows, event = scaffold_kernels(n, exe, x8, card)
+    out["kernels"] += rows
+    out["event"] += event
+    info["cpu_s"] = scaffold_hold_cpu(n, sc.network, rep, x1, x8, vs, served)
+    info["oracle_s"], info["oracle_lanes_steps"] = scaffold_hold_oracle(
+        n, oracle, vs, served)
+    if n == min(SCAFFOLD_SIZES):
+        info["profile"] = scaffold_profile(n, sc, rep, x8)
+    if n == max(SCAFFOLD_SIZES):
+        out["engine"], e_counts = scaffold_engine(sc, rep, exe, card)
+        for k in ("lif_step", "spike_wdm_project", "sparse_gather"):
+            total[k] += e_counts[k]
+    info["max_memory_bytes"] = torch.cuda.max_memory_allocated()
+    info["seconds"] = time.perf_counter() - t_size
+    print(f"scaffold {n}: peak device memory "
+          f"{info['max_memory_bytes'] / 2**20:.1f} MiB; {info['seconds']:.1f} s "
+          "after the build")
+    out["sizes"][str(n)] = info
+    release_network_executable(rep)
+    torch.cuda.empty_cache()
+
+
 # -- 7. serve mamba2-130m ----------------------------------------------------------
 def lm_inputs():
     """The served request, as repro_torch.launch.serve draws it for seed 0."""
@@ -1990,6 +2732,12 @@ def main() -> int:
     from repro_torch.kernels.lif_update import MAX_EDGES
 
     t_start = time.perf_counter()
+    laps = [("1. build and kernel checks", t_start)]
+
+    def lap(name):
+        """Print the seconds since the previous phase began."""
+        print(f"seconds: {laps[-1][0]} took {time.perf_counter() - laps[-1][1]:.1f} s")
+        laps.append((name, time.perf_counter()))
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2074,6 +2822,7 @@ def main() -> int:
           f"max |diff| {err['ssd_chunk']:.3e}, at most {err['ssd_chunk/tol']:.3f} of "
           "the tolerance)")
 
+    lap("2. compile and path-shape checks")
     # 2. compile
     net = gesture_net()
     reports, clf = compile_reports(net)
@@ -2126,6 +2875,7 @@ def main() -> int:
                                                 max_abs_diff(out, ref))
     err = {k: max(err[k], path_err[k]) for k in err}
 
+    lap("3. serve, fused")
     # 3. serve, fused: the main path, with the launch counts read around it
     oracles = lane_oracles(net, batches)
     reset_launch_counts()
@@ -2139,6 +2889,7 @@ def main() -> int:
     for name, rep in reports.items():
         step_ops(net, name, rep, batches[0])
 
+    lap("3b. serve, engine")
     # 3b. serve through the engine: the SNN user's path, counts read around it
     engine, traffic, launched = engine_ready(net, reports)
     reset_launch_counts()
@@ -2147,6 +2898,7 @@ def main() -> int:
     print(f"engine: launches on the engine's path: {e_counts}")
     hold_engine(net, reports, engine, traffic, rids, replay, launched, e_counts)
 
+    lap("4. serve, temporal")
     # 4. serve, temporal: the second path, counts read around it alone
     reset_launch_counts()
     t_served, t_records = serve_temporal(net, reports, batches)
@@ -2163,11 +2915,13 @@ def main() -> int:
             f"{n_iter} iterative populations")
     hold_temporal(net, reports, batches, t_served, served, t_records, oracles)
 
+    lap("5-6. exact modes, step-serial block")
     # 5. the exact reset modes, 6. the step-serial block
     exact_modes(clf, batches)
     hybrid_block()
     recurrent_device()
 
+    lap("7. mamba2, and the timings of phases 3-7")
     # 7. serve mamba2-130m: f32 against the CPU (K5 counted around it), bf16 timed
     cfg32, host32, steps32, greedy32, ssd_launches = serve_mamba2_f32()
 
@@ -2176,6 +2930,11 @@ def main() -> int:
         time_temporal(net, name, rep, batches[1], card)
     time_engine(net, reports, engine, traffic, e_stats, e_rps, card)
     serve_mamba2_bf16(card, host32, steps32, greedy32)
+
+    lap("8. the cerebellum scaffold")
+    # 8. the cerebellum scaffold at 10k and 100k neurons, its paths' counts
+    # read around each path alone
+    s_counts, s_json = scaffold_phase(card)
 
     gather_args = max(ell_s, key=lambda e: e[0].numel())
     ga_val, ga_idx, ga_s = gather_args
@@ -2203,7 +2962,8 @@ def main() -> int:
     path["lif_fixed_point"] = fps[0]
     wdm, src, dly, _, _ = par_s[0]
     path["spike_wdm_project"] = (wdm, src, dly, rings[0], 5)
-    launches = {k: counts[k] + t_counts[k] + e_counts[k] for k in counts}
+    launches = {k: counts[k] + t_counts[k] + e_counts[k] + s_counts[k]
+                for k in counts}
     launches["ssd_chunk"] += ssd_launches
     ssm = cfg32.ssm
     path["ssd_chunk"] = ((LM_BATCH * -(-LM_PROMPT // ssm.chunk), ssm.chunk,
@@ -2211,7 +2971,9 @@ def main() -> int:
                           ssm.head_dim, ssm.d_state, ssm.n_groups), 0)
     rows = kernel_rows(path, err, launches, card, temporal_gather,
                        max(x.shape[0] for x, _ in batches), fps[1:])
+    lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"scaffold": s_json}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,7 @@ from .executor import (
     validate_spike_outputs,
 )
 from .network import run_network, run_network_layerwise
+from .profiler import ActivityProfile, profile_outputs, profile_run
 from .temporal_runtime import (
     TemporalReport,
     choose_temporal_mode,
@@ -82,6 +83,7 @@ __all__ = [
     "OutputValidationError", "validate_spike_outputs",
     "get_layer_executable", "network_executable",
     "release_network_executable", "lowering_counts", "lowering_total",
+    "ActivityProfile", "profile_outputs", "profile_run",
     "TemporalReport", "choose_temporal_mode", "temporal_lif",
     "temporal_project_dense", "temporal_project_sparse", "temporal_step",
 ]

@@ -45,13 +45,21 @@ def ssd_chunk_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     diff = cs[:, :, None, :] - cs[:, None, :, :]               # (G, Qi, Qj, H)
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
     lmat = diff.masked_fill(~causal[None, :, :, None], float("-inf")).exp()
+    dec_to_end = torch.exp(cs[:, -1:, :] - cs)                 # (G, Q, H)
+    # The CPU's matrix products sum in an order that may change with the
+    # library's code path (a first call in a busy process took another one
+    # and moved y by up to 1e-2), so on the CPU the two contractions sum in
+    # f64, where every f32 product is exact and any order rounds to the
+    # same f32 once at the end.  The card keeps f32, as the kernel.
+    wide = torch.float64 if x.device.type == "cpu" else x.dtype
+    x, b, c = x.to(wide), b.to(wide), c.to(wide)
     # one score matrix per group, shared by its heads
     scores = torch.einsum("gikn,gjkn->gijk", c, b)             # (G, Qi, Qj, Hg)
     scores = scores.repeat_interleave(per_group, dim=3) * lmat  # (G, Qi, Qj, H)
     y = torch.einsum("gijh,gjhp->gihp", scores, x)
-    dec_to_end = torch.exp(cs[:, -1:, :] - cs)                 # (G, Q, H)
     b_heads = b.repeat_interleave(per_group, dim=2)            # (G, Q, H, N)
     state = torch.einsum("gjhn,gjhp->ghnp", b_heads * dec_to_end[..., None], x)
+    y, state = y.to(lmat.dtype), state.to(lmat.dtype)
     if single:
         return y[0], state[0]
     return y, state

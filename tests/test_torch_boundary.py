@@ -54,7 +54,10 @@ def test_import_leaves_jax_and_repro_out():
         "          'launch.serve', 'serving.engine', 'serving.pool',\n"
         "          'serving.supervisor', 'serving.faults', 'placement.mapper',\n"
         "          'placement.partition', 'placement.tiling',\n"
-        "          'distributed.sharding', 'distributed.fault_tolerance'):\n"
+        "          'distributed.sharding', 'distributed.fault_tolerance',\n"
+        "          'scaffold.cerebellum', 'scaffold.stimulus',\n"
+        "          'core.runtime.profiler', 'core.classifiers.zoo',\n"
+        "          'core.classifiers.mlp', 'core.classifiers.simple'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -912,3 +912,81 @@ def test_wdm_kernels_past_65535_lanes(card, batch):
         out = spike_wdm_project(*ops, t)
         assert out.shape == (batch, 5)
         assert torch.equal(out, spike_wdm_project_ref(*ops, t))
+
+
+# -- the cerebellum scaffold ----------------------------------------------------
+_SCAFFOLD = {}
+
+
+def _scaffold(device):
+    """The 1.2k cerebellum of ``tests/test_scaffold_equivalence.py``, compiled
+    afresh for each device so each keeps its own executables."""
+    key = str(device)
+    if key not in _SCAFFOLD:
+        from repro_torch.scaffold import build_cerebellum, compile_scaffold
+
+        sc = build_cerebellum(1200, seed=90)
+        report = compile_scaffold(sc)
+        _SCAFFOLD[key] = (sc, report,
+                          network_executable(sc.network, report, device=device))
+    return _SCAFFOLD[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["solo", "fused", "vmap", "sharded", "temporal"])
+def test_scaffold_on_card_equals_cpu(card, path):
+    """Two inputs, CSR projections and the recurrent Golgi loop on every
+    path: the card equals the port on the CPU bit for bit, the temporal
+    path with the same passes and residuals."""
+    sc, report, exe = _scaffold(card)
+    _, cpu_report, cpu = _scaffold("cpu")
+    x = sc.stimulus(10, 3, seed=91)
+    valid = np.asarray([10, 6, 0], np.int32)
+    if path == "solo":
+        runs = [(exe.run(x[:, b:b + 1]), cpu.run(x[:, b:b + 1]))
+                for b in range(3)]
+    else:
+        if path == "sharded":
+            exe.shard()
+        kw = dict(valid_steps=valid, batched=path == "vmap",
+                  temporal=path == "temporal")
+        runs = [(exe.run(x, **kw), cpu.run(x, **kw))]
+    for got, want in runs:
+        assert len(got) == len(want) == 8
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    if path == "temporal":
+        assert report.temporal[(3, 10)] == cpu_report.temporal[(3, 10)]
+        assert report.temporal[(3, 10)].split == (0, 2, 2)
+    assert sum(float(z.sum()) for z in runs[0][0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,depth,n_source", [(800, 8000, 4, 8000),
+                                                (2000, 6489, 3, 6500)])
+def test_wdm_kernels_at_scaffold_widths(card, m, k, depth, n_source):
+    """K2 at the cerebellum's parallel edges (granule->basket_stellate at
+    10k, mossy->golgi at 100k), batch 8: exact against the plain versions."""
+    ops = [torch.from_numpy(o).to(card)
+           for o in project_operands(m, k, 8, depth, n_source, seed=m)]
+    for t in (0, depth + 1):
+        assert torch.equal(spike_wdm_project(*ops, t),
+                           spike_wdm_project_ref(*ops, t))
+    a, x = wdm_operands(m, k, 8, seed=k)
+    a, xt = torch.from_numpy(a).to(card), torch.from_numpy(x.T.copy()).to(card)
+    assert torch.equal(spike_wdm_matmul(a, xt), spike_wdm_matmul_ref(a, xt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,lanes", [(240_000, 11), (32_000, 62)])
+@pytest.mark.parametrize("cols", [8, 512])
+def test_gather_kernel_at_scaffold_widths(card, r, lanes, cols):
+    """K3 at the 100k cerebellum's ELL shapes over an 80,000-neuron source:
+    a micro-batch of 8 read through the transposed view, and the temporal
+    path's 64 x 8 columns; exact against the plain version."""
+    val, idx, x = ell_operands(r, lanes, 80_000, cols, seed=r + cols)
+    val, idx = torch.from_numpy(val).to(card), torch.from_numpy(idx).to(card)
+    x = torch.from_numpy(x).to(card)
+    if cols == 8:
+        x = x.t().contiguous().t()           # the fused step's (B, S) view
+    assert torch.equal(sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x))

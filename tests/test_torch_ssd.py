@@ -89,6 +89,48 @@ def test_ssd_chunk_batched_equals_per_chunk_jax():
     np.testing.assert_array_equal(s1, s[1])
 
 
+#: a fresh interpreter's first K5 call on the CPU, on operands saved by the test
+FIRST_CALL = """
+import sys
+import numpy as np, torch
+from repro_torch.kernels.ssd_chunk import ssd_chunk
+ops = [torch.from_numpy(np.load(f"{sys.argv[1]}/{k}.npy")) for k in "xbcl"]
+y, s = ssd_chunk(*ops)
+np.save(f"{sys.argv[2]}_y.npy", y.numpy())
+np.save(f"{sys.argv[2]}_s.npy", s.numpy())
+"""
+
+
+def test_ssd_chunk_first_call_reproducible_across_processes(tmp_path):
+    """The first call in each of six fresh processes, all started at once
+    while this one runs the reference's kernel, gives the same bits as this
+    process's call, within the reference's tolerance of its kernel."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+
+    shape = SSD_SHAPES[0]
+    ops = ssd_operands(shape, seed=shape[0] + shape[3])
+    for k, a in zip("xbcl", ops):
+        np.save(tmp_path / f"{k}.npy", a)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(repro_torch.__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, "-c", FIRST_CALL, str(tmp_path),
+                               str(tmp_path / f"p{i}")], env=env)
+             for i in range(6)]
+    yk, sk = jax_ssd_chunk(*(jnp.asarray(a) for a in ops), interpret=True)
+    y, s = port_ssd(*ops)
+    assert [p.wait(timeout=300) for p in procs] == [0] * 6
+    for i in range(6):
+        np.testing.assert_array_equal(np.load(tmp_path / f"p{i}_y.npy"), y)
+        np.testing.assert_array_equal(np.load(tmp_path / f"p{i}_s.npy"), s)
+    np.testing.assert_allclose(y, np.asarray(yk), **TOL)
+    np.testing.assert_allclose(s, np.asarray(sk), **TOL)
+
+
 #: (Q, H, P, N): a ragged shape and a mamba2 chunk's widths at few heads
 GROUPED_SHAPES = [(64, 4, 16, 32), (100, 6, 20, 36)]
 
