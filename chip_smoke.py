@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Nine phases,
+``nvcc``; exits non-zero, printing no result, without them.  Ten phases,
 none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
@@ -110,6 +110,25 @@ none of which is caught and swallowed:
    population), and every kernel is held to its plain version and timed at
    the scaffold's own operands beside its bound and a library call
    (``torch._int_mm`` for K2, ``torch.sparse.mm`` for K3).
+9. **Serve the attention, recurrent and MoE archs** (no kernel of ours
+   runs on their path: the reference computes these blocks outside any
+   Pallas kernel).  (a) Every arch's smoke config in float32 (the
+   reference's smoke settings: b 2, s 12, cache 16, MoE capacity 8.0) and
+   recurrentgemma's at s 40, past its window of 32 (where the reference's
+   ring offset shows): prefill and 3 greedy decode steps on the card
+   against the port on the CPU, same weights; logits and every cache within
+   ``lm_close``, greedy tokens equal.  (b) recurrentgemma-2b at full width
+   and depth (26 layers, d 2560, 3.31B parameters) in float32: batch 2 x 64
+   tokens and 8 decode steps, the CPU teacher-forced with the card's
+   tokens, within ``lm_close``.  (c) The same arch in the published
+   bfloat16 through ``repro_torch.launch.serve.main`` (batch 4 x 1024 + 32
+   greedy steps), then prefill and decode timed on the same weights (host
+   ms, device ms and busy share by the profiler, top device ops, peak
+   memory); logits finite.  (d) olmoe-1b-7b at full width with its depth
+   cut to 4 of 16 layers: float32 batch 2 x 32 + 4 steps, card against the
+   CPU with no routed pair's expert differing; sort and onehot dispatch
+   agree on the card at capacity 8.0; then bfloat16 at batch 4 x 1024 + 32
+   greedy steps, timed as in (c).
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -178,8 +197,16 @@ CHAIN_CYCLES = 8
 SCAN_ALPHAS = (0.0, 0.5, 0.9, 1.0)
 #: K5's tolerance against its plain version: the reference's kernel test's
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
-#: mamba2-130m served in phase 7: batch, prompt tokens, greedy decode steps
+#: mamba2-130m served in phase 7, and recurrentgemma-2b and olmoe-1b-7b timed
+#: in phase 9: batch, prompt tokens, greedy decode steps
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 1024, 32
+#: phase 9 (b): recurrentgemma-2b in f32, card against the CPU: batch,
+#: prompt tokens, decode steps
+RG_F32 = (2, 64, 8)
+#: phase 9 (d): olmoe-1b-7b's layers of 16 kept (the CPU init and host
+#: memory), and its f32 request: batch, prompt tokens, decode steps (a small
+#: batch: a near-tie in top_k may flip between devices on large ones)
+OLMOE_LAYERS, OLMOE_F32 = 4, (2, 32, 4)
 
 
 class SmokeFailure(RuntimeError):
@@ -2233,32 +2260,36 @@ def lm_inputs():
     return cfg, tokens, LM_PROMPT + LM_STEPS + 1
 
 
-def lm_run(params, cfg, tokens, cache_len, forced=None):
-    """Prefill, then LM_STEPS greedy decode steps (fed ``forced``'s tokens
-    when given).  Returns the logits of every step (host f32), the tokens
-    fed back, the caches after the prefill and at the end (host), and the
-    kernels' launch counts in the prefill and in the decode steps, each
-    set to 0 just before and read just after."""
+def lm_run(params, cfg, batch, cache_len, forced=None, steps=LM_STEPS):
+    """Prefill ``batch`` (host tensors), then ``steps`` greedy decode steps
+    (fed ``forced``'s tokens when given).  Returns the logits of every step
+    (host f32), the tokens fed back, the caches after the prefill and at the
+    end (host), and the kernels' launch counts in the prefill and in the
+    decode steps, each set to 0 just before and read just after."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as lm
 
     dev = params["tok_embed"].device
+    pos = batch["embeds" if "embeds" in batch else "tokens"].shape[1] \
+        + cfg.n_frontend_tokens
     with torch.inference_mode():
         reset_launch_counts()
-        logits, caches = lm.prefill(params, cfg, {"tokens": tokens.to(dev)}, cache_len)
+        logits, caches = lm.prefill(params, cfg,
+                                    {k: v.to(dev) for k, v in batch.items()},
+                                    cache_len)
         counts = [launch_counts()]
         after_prefill = lm_host(caches)
-        steps, fed = [logits.float().cpu()], []
+        outs, fed = [logits.float().cpu()], []
         reset_launch_counts()
-        for i in range(LM_STEPS):
+        for i in range(steps):
             tok = (forced[:, i:i + 1] if forced is not None
-                   else steps[-1][:, -1].argmax(-1)[:, None])
+                   else outs[-1][:, -1].argmax(-1)[:, None])
             fed.append(tok)
-            logits, caches = lm.decode_step(params, cfg, tok.to(dev),
-                                            LM_PROMPT + i, caches, cache_len)
-            steps.append(logits.float().cpu())
+            logits, caches = lm.decode_step(params, cfg, tok.to(dev), pos + i,
+                                            caches, cache_len)
+            outs.append(logits.float().cpu())
         counts.append(launch_counts())
-    return steps, torch.cat(fed, dim=1), after_prefill, lm_host(caches), counts
+    return outs, torch.cat(fed, dim=1), after_prefill, lm_host(caches), counts
 
 
 def lm_host(caches):
@@ -2275,7 +2306,7 @@ def lm_close(got, want, what):
     ok = bool((diff <= 1e-4 * want.double().abs() + 1e-4 * scale).all())
     err = float(diff.max())
     require(ok and bool(torch.isfinite(got).all()),
-            f"mamba2 f32: {what} differs: max |diff| {err} at scale {scale}")
+            f"f32 card vs CPU: {what} differs: max |diff| {err} at scale {scale}")
     return err, err / max(scale, 1e-30)
 
 
@@ -2296,7 +2327,7 @@ def serve_mamba2_f32():
           f"{time.perf_counter() - t0:.1f} s")
 
     steps, toks, cache_p, cache_e, (in_prefill, in_decode) = lm_run(
-        params, cfg, tokens, cache_len)
+        params, cfg, {"tokens": tokens}, cache_len)
     print(f"mamba2: launches in the prefill {in_prefill}; in the {LM_STEPS} "
           f"decode steps {in_decode}")
     require(in_prefill["ssd_chunk"] == cfg.n_layers,
@@ -2306,15 +2337,16 @@ def serve_mamba2_f32():
             "mamba2: logits of the wrong shape")
 
     t0 = time.perf_counter()           # full depth: ~13 s on the card's host
-    c_steps, _, c_cache_p, c_cache_e, _ = lm_run(host, cfg, tokens, cache_len,
-                                                 forced=toks)
+    c_steps, _, c_cache_p, c_cache_e, _ = lm_run(host, cfg, {"tokens": tokens},
+                                                 cache_len, forced=toks)
     t_cpu = time.perf_counter() - t0
-    errs = {"logits": max(lm_close(a, b, f"logits of step {i}")
+    errs = {"logits": max(lm_close(a, b, f"mamba2 logits of step {i}")
                           for i, (a, b) in enumerate(zip(steps, c_steps)))}
     for when, got, want in (("prefill", cache_p, c_cache_p), ("end", cache_e, c_cache_e)):
         for name in ("conv", "ssd"):
             errs[f"{name} cache ({when})"] = lm_close(
-                got[0][0][name], want[0][0][name], f"{name} cache after the {when}")
+                got[0][0][name], want[0][0][name],
+                f"mamba2 {name} cache after the {when}")
     print(f"mamba2 f32: card vs the port on the CPU (all {cfg.n_layers} layers, "
           f"CPU run {t_cpu:.1f} s, decode teacher-forced with the card's tokens), "
           "tolerance |diff| <= 1e-4 |cpu| + 1e-4 max|cpu|: "
@@ -2338,7 +2370,8 @@ def serve_mamba2_bf16(card, host32, steps32, greedy32):
 
     # the init draws in f32 and casts, so these are serve.main's weights
     params = minit.tree_to(minit.tree_to(host32, "cuda"), torch.bfloat16)
-    steps16 = lm_run(params, cfg, tokens, cache_len, forced=greedy32[:, :-1])[0]
+    steps16 = lm_run(params, cfg, {"tokens": tokens}, cache_len,
+                     forced=greedy32[:, :-1])[0]
     diff = max(float((a - b).abs().max()) for a, b in zip(steps16, steps32))
     agree = float(np.mean([bool(a[b, -1].argmax() == c[b, -1].argmax())
                            for a, c in zip(steps16, steps32) for b in range(LM_BATCH)]))
@@ -2371,6 +2404,296 @@ def serve_mamba2_bf16(card, host32, steps32, greedy32):
     for what, (total, n, top) in (("prefill", top_p), ("decode step", top_d)):
         print(f"mamba2 profile [{card}]: {what}: device {total:.3f} ms in {n} "
               f"launches; top: {top}")
+
+
+# -- 9. serve the attention, recurrent and MoE archs -------------------------------
+def lm_batch(cfg, b, s, seed):
+    """A prompt as repro_torch.launch.serve draws it (host tensors): tokens,
+    then the stub frontends' embeddings from the same generator."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))}
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.as_tensor(rng.normal(
+            size=(b, cfg.n_frontend_tokens, cfg.d_model)) * 0.02).to(dt)
+    if cfg.frontend == "audio":
+        batch = {"embeds": torch.as_tensor(rng.normal(
+            size=(b, s, cfg.d_model)) * 0.02).to(dt)}
+    return batch
+
+
+def hold_lm(name, got, want):
+    """Every step's logits and every cache leaf (after the prefill and at
+    the end) of a card run against the CPU run, within ``lm_close``.
+    Returns the largest (abs, share of scale) of the logits and caches."""
+    steps, _, cache_p, cache_e, _ = got
+    c_steps, _, c_cache_p, c_cache_e, _ = want
+    logits = max(lm_close(a, b, f"{name} logits of step {i}")
+                 for i, (a, b) in enumerate(zip(steps, c_steps)))
+    caches = (0.0, 0.0)
+    for when, g, w in (("prefill", cache_p, c_cache_p), ("end", cache_e, c_cache_e)):
+        for gi, (gg, ww) in enumerate(zip(g, w)):
+            for ti, (gb, wb) in enumerate(zip(gg, ww)):
+                require(gb.keys() == wb.keys(), f"{name}: cache trees differ")
+                for leaf in wb:
+                    caches = max(caches, lm_close(
+                        gb[leaf], wb[leaf],
+                        f"{name} cache {gi}.{ti}.{leaf} after the {when}"))
+    return logits, caches
+
+
+def serve_smoke_archs():
+    """Phase 9 (a): every arch's smoke config in f32 (MoE capacity 8.0, the
+    reference's smoke settings: b 2, s 12, cache 16) and recurrentgemma's at
+    s 40, past its window of 32: prefill and 3 greedy decode steps on the
+    card and on the CPU, same weights; equal greedy tokens.  Returns the
+    largest error's share of its tensor's scale and the kernels' launches
+    on the card's runs (each run's prefill and decode counted alone)."""
+    from repro_torch.configs import ARCH_NAMES, smoke_config
+    from repro_torch.models import init as minit
+
+    worst, launches = 0.0, {k: 0 for k in REPLACES}
+    for arch, seq in [(a, 12) for a in ARCH_NAMES] + [("recurrentgemma-2b", 40)]:
+        cfg = smoke_config(arch)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        cache_len = 16 if seq == 12 else seq + 4
+        host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        batch = lm_batch(cfg, 2, seq, seed=0)
+        got = lm_run(minit.tree_to(host, "cuda"), cfg, batch, cache_len, steps=3)
+        want = lm_run(host, cfg, batch, cache_len, steps=3)
+        greedy = [torch.cat([r[1], r[0][-1][:, -1].argmax(-1)[:, None]], 1)
+                  for r in (got, want)]
+        require(torch.equal(*greedy), f"{arch} s {seq}: greedy tokens differ: "
+                f"{greedy[0].tolist()} vs {greedy[1].tolist()}")
+        logits, caches = hold_lm(f"{arch}-smoke s {seq}", got, want)
+        worst = max(worst, logits[1], caches[1])
+        in_prefill, in_decode = got[4]
+        # only mamba2's prefill runs a kernel of ours: K5, once a layer
+        want_k5 = cfg.n_layers if "mamba2" in cfg.block_pattern else 0
+        require(nonzero(in_prefill) == (nonzero({"ssd_chunk": want_k5}))
+                and nonzero(in_decode) == "none",
+                f"{arch}: launches {in_prefill} in the prefill, {in_decode} "
+                "in decode")
+        for k, v in in_prefill.items():
+            launches[k] += v
+        print(f"lm smoke {arch} s {seq}: card vs CPU logits max abs {logits[0]:.3e} "
+              f"(rel {logits[1]:.3e}), caches {caches[0]:.3e} (rel {caches[1]:.3e}); "
+              f"greedy tokens equal {greedy[0][0].tolist()}; launches in the "
+              f"prefill {nonzero(got[4][0])}")
+    return worst, launches
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v} or "none"
+
+
+def serve_recurrentgemma_f32():
+    """Phase 9 (b): recurrentgemma-2b at full width and depth in f32: batch
+    RG_F32[0] x RG_F32[1] prompt tokens, then RG_F32[2] decode steps, the
+    CPU teacher-forced with the card's tokens.  Returns the host weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init as minit
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), dtype="float32")
+    b, seq, steps = RG_F32
+    t0 = time.perf_counter()
+    host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    t_init = time.perf_counter() - t0
+    params = minit.tree_to(host, "cuda")
+    batch, cache_len = lm_batch(cfg, b, seq, seed=0), seq + steps + 1
+    got = lm_run(params, cfg, batch, cache_len, steps=steps)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = lm_run(host, cfg, batch, cache_len, forced=got[1], steps=steps)
+    t_cpu = time.perf_counter() - t0
+    logits, caches = hold_lm("recurrentgemma-2b", got, want)
+    print(f"recurrentgemma-2b f32: {minit.param_count(cfg):,} parameters "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV head of {cfg.head_dim}, window {cfg.attn_window}, "
+          f"vocab {cfg.vocab}; CPU init {t_init:.1f} s), batch {b} x {seq} + "
+          f"{steps} steps: card vs the port on the CPU (CPU run {t_cpu:.1f} s, "
+          "decode teacher-forced) logits max abs "
+          f"{logits[0]:.3e} rel {logits[1]:.3e}, every cache max abs {caches[0]:.3e} "
+          f"rel {caches[1]:.3e}; greedy tokens of request 0: {got[1][0].tolist()}")
+    return host
+
+
+def time_lm(name, card, params, cfg, batch, cache_len):
+    """Prefill and decode of ``batch`` timed on the card: host ms to a sync,
+    device ms and busy share by the profiler, the top device ops, and the
+    peak device memory of these runs (the weights included).  Returns the
+    logits of the prefill and of one decode step."""
+    from repro_torch.models import model as lm
+
+    torch.cuda.reset_peak_memory_stats()
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    pos = batch["embeds" if "embeds" in batch else "tokens"].shape[1] \
+        + cfg.n_frontend_tokens
+    with torch.inference_mode():
+        def prefill():
+            return lm.prefill(params, cfg, dev_batch, cache_len)
+
+        first, caches = prefill()
+        tok = first[:, -1].argmax(-1)[:, None]
+
+        def decode():
+            return lm.decode_step(params, cfg, tok, pos, caches, cache_len)
+
+        step = decode()[0]
+        pre_host = host_ms(prefill, reps=3)
+        dec_host = host_ms(decode, reps=LM_STEPS)
+        (pre_dev, pre_n, pre_top), (dec_dev, dec_n, dec_top) = (
+            profiled_ms(prefill), profiled_ms(decode))
+    b, seq = batch["embeds" if "embeds" in batch else "tokens"].shape[:2]
+    print(f"{name} [{card}]: prefill (batch {b} x {seq}) {pre_host:.3f} ms, device "
+          f"{pre_dev:.3f} ms in {pre_n} launches, busy share {pre_dev / pre_host:.3f}; "
+          f"decode {dec_host:.3f} ms a step ({b * 1e3 / dec_host:.1f} tok/s), device "
+          f"{dec_dev:.3f} ms in {dec_n} launches, busy share {dec_dev / dec_host:.3f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"{name} profile [{card}]: prefill top: {pre_top}")
+    print(f"{name} profile [{card}]: decode step top: {dec_top}")
+    return first, step
+
+
+def serve_recurrentgemma_bf16(card, host32):
+    """Phase 9 (c): recurrentgemma-2b in the published bf16 through the
+    user's entry point, then timed on the same weights (the init draws in
+    f32 and casts, so ``host32`` cast to bf16 is serve.main's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init as minit
+
+    cfg = get_config("recurrentgemma-2b")
+    require(cfg.dtype == "bfloat16", f"published dtype {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", "recurrentgemma-2b", "--batch", str(LM_BATCH),
+                      "--prompt-len", str(LM_PROMPT), "--gen", str(LM_STEPS)])
+    t_main = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(out["tokens"].shape == (LM_BATCH, LM_STEPS)
+            and ((0 <= out["tokens"]) & (out["tokens"] < cfg.vocab)).all(),
+            "recurrentgemma-2b bf16: serve.main's tokens out of range")
+    print(f"recurrentgemma-2b bf16 [{card}]: serve.main (batch {LM_BATCH} x "
+          f"{LM_PROMPT} + {LM_STEPS} greedy steps, {t_main:.1f} s with the CPU init): "
+          f"prefill {out['prefill_s'] * 1e3:.3f} ms (first call), decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    params = minit.tree_to(minit.tree_to(host32, "cuda"), torch.bfloat16)
+    batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0)
+    first, step = time_lm("recurrentgemma-2b bf16", card, params, cfg, batch,
+                          LM_PROMPT + LM_STEPS)
+    require(bool(torch.isfinite(first).all() and torch.isfinite(step).all()),
+            "recurrentgemma-2b bf16: logits not finite")
+    agree = float((first[:, -1].argmax(-1).cpu().numpy() == out["tokens"][:, 0]).mean())
+    print(f"recurrentgemma-2b bf16: logits finite; the first greedy token equals "
+          f"serve.main's on {agree:.2f} of the batch")
+    del params
+    torch.cuda.empty_cache()
+
+
+class RouteLog:
+    """Records the experts each MoE layer routes to (``blocks._route``),
+    for the card and CPU runs of one request."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+        self.blocks, self.route, self.picks = blocks, blocks._route, []
+
+    def __enter__(self):
+        def route(*args):
+            w, e = self.route(*args)
+            self.picks.append(e.cpu())
+            return w, e
+
+        self.blocks._route = route
+        return self.picks
+
+    def __exit__(self, *exc):
+        self.blocks._route = self.route
+
+
+def serve_olmoe(card):
+    """Phase 9 (d): olmoe-1b-7b at full width with its depth cut: f32 card
+    against the CPU port with the routing compared pair by pair, sort and
+    onehot dispatch on the card, then bf16 timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init as minit, model as lm
+
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, n_layers=OLMOE_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    t_init = time.perf_counter() - t0
+    params = minit.tree_to(host, "cuda")
+    b, seq, steps = OLMOE_F32
+    batch, cache_len = lm_batch(cfg, b, seq, seed=0), seq + steps + 1
+    with RouteLog() as card_picks:
+        got = lm_run(params, cfg, batch, cache_len, steps=steps)
+    with RouteLog() as cpu_picks:
+        want = lm_run(host, cfg, batch, cache_len, forced=got[1], steps=steps)
+    require(len(card_picks) == len(cpu_picks) == OLMOE_LAYERS * (steps + 1),
+            "olmoe: MoE layers routed a different number of times")
+    flips = sum(int((a != c).sum()) for a, c in zip(card_picks, cpu_picks))
+    pairs = sum(a.numel() for a in card_picks)
+    print(f"olmoe-1b-7b: depth cut to {OLMOE_LAYERS} of {full.n_layers} layers "
+          f"(width not cut: d {cfg.d_model}, {cfg.moe.n_experts} experts, top "
+          f"{cfg.moe.top_k}, expert d_ff {cfg.moe.d_ff}, capacity "
+          f"{cfg.moe.capacity_factor}), {minit.param_count(cfg):,} parameters "
+          f"(CPU init {t_init:.1f} s); routed pairs whose expert differs between "
+          f"the card and the CPU: {flips} of {pairs}")
+    require(flips == 0, f"olmoe: {flips} routed pairs differ between card and CPU")
+    logits, caches = hold_lm("olmoe-1b-7b", got, want)
+
+    # sort and onehot agree on the card when nothing drops (capacity 8.0)
+    agree = {}
+    for dispatch in ("sort", "onehot"):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, dispatch=dispatch))
+        with torch.inference_mode():
+            agree[dispatch] = lm.prefill(
+                params, c, {k: v.cuda() for k, v in batch.items()}, cache_len)[0].cpu()
+    dispatch_err = lm_close(agree["onehot"], agree["sort"],
+                            "olmoe onehot vs sort dispatch logits")
+    print(f"olmoe-1b-7b f32: batch {b} x {seq} + {steps} steps, card vs the port on "
+          f"the CPU logits max abs {logits[0]:.3e} rel {logits[1]:.3e}, every cache "
+          f"max abs {caches[0]:.3e} rel {caches[1]:.3e}; on the card at capacity "
+          f"8.0 onehot vs sort logits max abs {dispatch_err[0]:.3e} rel "
+          f"{dispatch_err[1]:.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params = minit.tree_to(minit.tree_to(host, "cuda"), torch.bfloat16)
+    batch = lm_batch(cfg16, LM_BATCH, LM_PROMPT, seed=0)
+    t0 = time.perf_counter()
+    run = lm_run(params, cfg16, batch, LM_PROMPT + LM_STEPS + 1, steps=LM_STEPS)
+    t_run = time.perf_counter() - t0
+    require(all(bool(torch.isfinite(x).all()) for x in run[0]),
+            "olmoe bf16: logits not finite")
+    print(f"olmoe-1b-7b bf16 [{card}]: batch {LM_BATCH} x {LM_PROMPT} + {LM_STEPS} "
+          f"greedy steps in {t_run:.3f} s, logits finite; greedy tokens of request "
+          f"0: {run[1][0, :12].tolist()}")
+    time_lm(f"olmoe-1b-7b {OLMOE_LAYERS}L bf16", card, params, cfg16, batch,
+            LM_PROMPT + LM_STEPS + 1)
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_phase(card):
+    """Phase 9: the attention, recurrent and MoE archs (no kernel of ours
+    runs on their path: the reference has no Pallas kernel for these
+    blocks; the mamba2 smoke config's prefill launches K5)."""
+    worst, launches = serve_smoke_archs()
+    print(f"lm smoke: all archs' card vs CPU within tolerance, largest share of "
+          f"scale {worst:.3e}; launches on the smoke path {nonzero(launches)}")
+    host32 = serve_recurrentgemma_f32()
+    serve_recurrentgemma_bf16(card, host32)
+    del host32
+    serve_olmoe(card)
 
 
 # -- kernel timings --------------------------------------------------------------
@@ -2935,6 +3258,11 @@ def main() -> int:
     # 8. the cerebellum scaffold at 10k and 100k neurons, its paths' counts
     # read around each path alone
     s_counts, s_json = scaffold_phase(card)
+
+    lap("9. serve the attention, recurrent and MoE archs")
+    # 9. the other nine archs: smoke configs, recurrentgemma-2b at full
+    # width, olmoe-1b-7b at full width and 4 layers
+    lm_phase(card)
 
     gather_args = max(ell_s, key=lambda e: e[0].numel())
     ga_val, ga_idx, ga_s = gather_args

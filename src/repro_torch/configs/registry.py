@@ -1,8 +1,7 @@
 """The 10 assigned architectures (exact public configs) + smoke variants.
 
 A host copy of ``repro.configs.registry``: the same entries, field for
-field (``tests/test_torch_ssd.py`` pins them).  Only ``mamba2-130m`` runs
-in the port so far (``repro_torch.models.blocks``).
+field (``tests/test_torch_ssd.py`` pins them).  The port runs all ten.
 
 Every entry is selectable via ``--arch <id>`` in the launchers.  Sources per
 the assignment sheet; `[source; tier]` documented inline.

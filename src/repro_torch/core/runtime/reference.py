@@ -14,7 +14,7 @@ float32 and the three executors (reference / serial / parallel) agree
 bit-for-bit on the spike trains.  The per-delay product is a plain
 ``torch.einsum`` in full float32: on CUDA it runs only while TF32 is off for
 matrix products (PyTorch's default), since TF32 would round the integer
-currents (:func:`require_full_f32`).
+currents (:func:`repro_torch.device.require_full_f32`).
 """
 from __future__ import annotations
 
@@ -23,21 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import require_full_f32, resolve_device
 from ...kernels.lif_update.ref import lif_update_ref
 from ..layer import LIFParams, SNNLayer, is_sparse
-
-
-def require_full_f32(device: torch.device) -> None:
-    """Raise if float32 matrix products on ``device`` would run in TF32.
-
-    The dense currents are exact only in full f32; the port never flips
-    the global flag itself, it refuses to run with it on."""
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is on: the dense spike "
-            "currents need full float32 products to stay exact"
-        )
 
 
 @dataclasses.dataclass

@@ -21,7 +21,7 @@ reference package:
   into a ``(d_slots, S, T)`` tensor so the update is one ``torch.einsum``
   plus a ring roll.  The einsum is exact only in full float32, so on CUDA
   it runs only while TF32 stays off for matrix products (PyTorch's
-  default; :func:`~repro_torch.core.runtime.reference.require_full_f32`).
+  default; :func:`~repro_torch.device.require_full_f32`).
 * :func:`serial_project_sparse` — the ELL gather form through the CUDA
   gather kernel (:mod:`repro_torch.kernels.sparse_gather`).
 
@@ -52,12 +52,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import require_full_f32, resolve_device
 from ...kernels.lif_update import lif_update, ring_deliver_ref
 from ...kernels.sparse_gather import sparse_gather
 from ..layer import LIFParams, SNNLayer
 from ..serial_compiler import SerialProgram, compile_serial, unpack_rows
-from .reference import LIFState, init_state, require_full_f32
+from .reference import LIFState, init_state
 
 #: Total ``lower_serial`` invocations (executable caching keeps this at one
 #: per layer per report and device).

@@ -42,9 +42,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from ...device import require_full_f32
 from ...kernels.lif_parallel_scan import lif_fixed_point
 from ...kernels.sparse_gather import sparse_gather
-from .reference import require_full_f32
 
 def choose_temporal_mode(
     alpha: float, v_th: float, *, nonneg_weights: bool

@@ -1,17 +1,17 @@
 """Serving launcher (the port of ``repro.launch.serve``): batched prefill,
-then a decode loop, on the card.
+then a decode loop, on the card, for any ``--arch``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --batch 4 --prompt-len 1024 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --smoke --device cpu
 
-Only the archs the port can build are offered (``PORTED_ARCHS``).  The
-weights are random from ``--seed`` by the reference's init rules, drawn
+The weights are random from ``--seed`` by the reference's init rules, drawn
 with a ``torch.Generator`` (the reference uses ``PRNGKey(0)``, so the
-weights differ); the prompt tokens come from ``np.random.default_rng(seed)``
-as the reference draws them, so seed 0 gives the reference's prompt.
-Times end in a device synchronisation.
+weights differ); the prompt tokens, and the stub frontends' vision patch
+and audio frame embeddings, come from ``np.random.default_rng(seed)`` in
+the reference's order, so seed 0 gives the reference's inputs.  Times end
+in a device synchronisation.
 """
 from __future__ import annotations
 
@@ -21,12 +21,9 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config, smoke_config
+from ..configs import ARCH_NAMES, get_config, smoke_config
 from ..device import resolve_device
 from ..models import init as minit, model as M
-
-#: archs whose every block type the port runs
-PORTED_ARCHS = ("mamba2-130m",)
 
 
 def _sync(device: torch.device) -> None:
@@ -36,7 +33,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCHS, default="mamba2-130m")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="recurrentgemma-2b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -53,9 +50,20 @@ def main(argv=None) -> dict:
     params = minit.init_params(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
     cache_len = args.prompt_len + args.gen + cfg.n_frontend_tokens
+    dtype = minit.torch_dtype(cfg)
+
+    def embeds(*shape):
+        # float64 draws rounded once to the model's dtype, as jnp.asarray does
+        return torch.as_tensor(rng.normal(size=shape) * 0.02).to(device, dtype)
+
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=device)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = embeds(args.batch, cfg.n_frontend_tokens,
+                                       cfg.d_model)
+    if cfg.frontend == "audio":
+        batch = {"embeds": embeds(args.batch, args.prompt_len, cfg.d_model)}
 
     with torch.inference_mode():
         t0 = time.perf_counter()

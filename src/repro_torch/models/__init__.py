@@ -1,2 +1,3 @@
 """The port of ``repro.models``: config, parameter init, block forwards and
-the prefill/decode driver (mamba2 blocks only so far)."""
+prefill/decode (attention, RG-LRU and Mamba-2 blocks; dense and MoE
+feed-forwards)."""

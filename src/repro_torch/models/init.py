@@ -8,11 +8,11 @@ rules are the reference's (``_init_leaf``); the random numbers come from a
 same weights, hand the JAX tree over as NumPy arrays
 (:func:`repro_torch.convert.lm_params_from_numpy`).
 
-The shape tables of all three block types are copied (they also give
-:func:`param_count`), but only ``mamba2`` blocks are built: the ``attn`` and
-``rglru`` blocks and MoE feed-forwards wait for ROADMAP §1 item 7.  The
-reference's logical sharding specs (``param_specs``) are not ported: the
-port runs on one card.
+The shape tables of the three block types (``attn``, ``mamba2``,
+``rglru``, each with its dense or MoE feed-forward leaves ``ffn.*``) are
+copied; they also give :func:`param_count`.  The reference's logical
+sharding specs (``param_specs``) are not ported: the port runs on one
+card.
 """
 from __future__ import annotations
 
@@ -23,10 +23,6 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-
-#: Block types the port can build and run so far.
-PORTED_BLOCKS = ("mamba2",)
-
 
 def group_layers(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(block types of one scan body, repeat count), ...]."""
@@ -153,19 +149,25 @@ def param_count(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _init_leaf(shape, name: str, cfg: ModelConfig, generator: torch.Generator):
-    """One mamba2 leaf of ``shape`` (leading layers axis included) by the
-    reference's rules (``repro.models.init._init_leaf``; the rules of the
-    other blocks' leaves come with those blocks)."""
+    """One leaf of ``shape`` (leading layers axis included) by the
+    reference's rules (``repro.models.init._init_leaf``); ``name`` is the
+    leaf's last dotted part (``ffn.w_down`` -> ``w_down``).  The rules that
+    depend on a width read the last axis, which is the reference's first
+    once the layers axis is added."""
     dt = torch_dtype(cfg)
-    if name in ("ln", "gn", "D_skip"):
+    if name.startswith(("ln", "gn")) or name.endswith("norm") or name == "D_skip":
         return torch.ones(shape, dtype=dt)
     if name == "A_log":
         a = torch.log(torch.linspace(1.0, 16.0, shape[-1]))
         return a.expand(shape).to(dt).clone()
-    if name in ("dt_bias", "conv_b"):
+    if name == "lam":
+        # Griffin: a in [0.9, 0.999] at init under a = sigmoid(lam)^(c*r)
+        return torch.linspace(2.0, 6.0, shape[-1]).expand(shape).to(dt).clone()
+    if (name.startswith("b") or name.endswith("_b")
+            or name in ("w_a", "w_i", "dt_bias")):
         return torch.zeros(shape, dtype=dt)
     scale = 0.02
-    if name == "out_proj":
+    if name in ("wo", "w_down", "out_proj", "w_out"):
         scale = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
     return (torch.randn(shape, generator=generator) * scale).to(dt)
 
@@ -179,13 +181,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     the card (or raise).
     """
     dev = resolve_device(device)
-    for types, _ in group_layers(cfg):
-        for bt in types:
-            if bt not in PORTED_BLOCKS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {bt!r} blocks are not ported yet "
-                    f"(ROADMAP.md §1 item 7)"
-                )
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dt = torch_dtype(cfg)
     params = {
@@ -199,7 +194,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     groups = []
     for types, repeat in group_layers(cfg):
         groups.append([
-            {name: _init_leaf((repeat,) + shape, name, cfg, gen)
+            {name: _init_leaf((repeat,) + shape, name.split(".")[-1], cfg, gen)
              for name, shape in block_shapes(cfg, bt).items()}
             for bt in types
         ])

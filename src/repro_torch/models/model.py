@@ -7,12 +7,15 @@ reference's tree (``caches[g][t][name]`` with a leading ``layers`` axis).
 The reference's ``constrain`` (a sharding constraint, the identity without
 a mesh) and its bf16 gradient barrier (the identity in the forward pass)
 are dropped.  ``train_loss`` is not ported yet (ROADMAP §1 item 7).
+Every float32 product runs in full float32: a call refuses to run on the
+card while TF32 is on for matrix products
+(:func:`repro_torch.device.require_full_f32`).
 """
 from __future__ import annotations
 
 import torch
 
-from ..device import resolve_device
+from ..device import require_full_f32, resolve_device
 from .blocks import block_forward, rms_norm
 from .config import ModelConfig
 from .init import group_layers, torch_dtype
@@ -41,6 +44,7 @@ def _stack(trees):
 
 def _run_groups(params, cfg: ModelConfig, x, *, mode, pos, caches, cache_len):
     """Each pattern group's layers in order; returns (x, new_caches)."""
+    require_full_f32(x.device)
     new_caches = []
     for gi, (types, repeat) in enumerate(group_layers(cfg)):
         gparams = params["groups"][gi]
@@ -63,11 +67,19 @@ def _run_groups(params, cfg: ModelConfig, x, *, mode, pos, caches, cache_len):
 
 
 def _embed(params, cfg: ModelConfig, batch):
-    """Token embedding.  Returns (x, labels_or_None).  The reference's
-    audio and vision frontends belong to archs built of attention blocks,
-    which the port does not run yet."""
-    tokens = torch.as_tensor(batch["tokens"], device=params["tok_embed"].device)
-    return params["tok_embed"][tokens.long()], batch.get("labels")
+    """Token / frontend embedding.  Returns (x, labels_or_None).  The
+    frontends are the reference's stubs: audio hands over its frame
+    embeddings (``embeds``), vision prepends its patch embeddings."""
+    dev = params["tok_embed"].device
+    if cfg.frontend == "audio" and "embeds" in batch:
+        x = torch.as_tensor(batch["embeds"], device=dev).to(torch_dtype(cfg))
+        return x, batch.get("labels")
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x = params["tok_embed"][tokens.long()]
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = torch.as_tensor(batch["patch_embeds"], device=dev).to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x, batch.get("labels")
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -82,25 +94,36 @@ def _logits(params, cfg: ModelConfig, x):
 
 def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int, device=None):
     """Zeroed decode caches, stacked (repeat, ...) per group, on ``device``
-    (default: the card, or raise).  ``cache_len`` sizes the attention
-    caches of the reference; the mamba2 caches do not depend on it."""
+    (default: the card, or raise)."""
     dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     caches = []
     for types, repeat in group_layers(cfg):
         per_type = []
         for bt in types:
-            if bt != "mamba2":
-                raise NotImplementedError(
-                    f"{bt!r} caches are not ported yet (ROADMAP.md §1 item 7)")
-            s = cfg.ssm
-            d_in = s.expand * cfg.d_model
-            conv_dim = d_in + 2 * s.n_groups * s.d_state
-            per_type.append({
-                "conv": torch.zeros((repeat, batch_size, conv_dim, s.d_conv - 1),
-                                    dtype=torch_dtype(cfg), device=dev),
-                "ssd": torch.zeros((repeat, batch_size, d_in // s.head_dim,
-                                    s.head_dim, s.d_state), dtype=f32, device=dev),
-            })
+            if bt == "attn":
+                w = min(cfg.attn_window or cache_len, cache_len)
+                kv = (repeat, batch_size, w, cfg.n_kv_heads, cfg.head_dim)
+                per_type.append({"k": zeros(*kv), "v": zeros(*kv)})
+            elif bt == "mamba2":
+                s = cfg.ssm
+                d_in = s.expand * cfg.d_model
+                conv_dim = d_in + 2 * s.n_groups * s.d_state
+                per_type.append({
+                    "conv": zeros(repeat, batch_size, conv_dim, s.d_conv - 1),
+                    "ssd": zeros(repeat, batch_size, d_in // s.head_dim,
+                                 s.head_dim, s.d_state, dtype=f32),
+                })
+            elif bt == "rglru":
+                r = cfg.rglru.d_rnn or cfg.d_model
+                per_type.append({
+                    "conv": zeros(repeat, batch_size, r, cfg.rglru.d_conv - 1),
+                    "h": zeros(repeat, batch_size, r, dtype=f32),
+                })
         caches.append(per_type)
     return caches
 

@@ -51,6 +51,10 @@ def test_import_leaves_jax_and_repro_out():
         "for m in ('kernels.ssd_chunk.ops', 'kernels.ssd_chunk.ref',\n"
         "          'models.config', 'models.init', 'models.blocks',\n"
         "          'models.model', 'configs.registry', 'configs.mamba2_130m',\n"
+        "          'configs.musicgen_large', 'configs.kimi_k2_1t_a32b',\n"
+        "          'configs.olmoe_1b_7b', 'configs.phi3_medium_14b',\n"
+        "          'configs.llama3_2_3b', 'configs.qwen1_5_4b', 'configs.qwen3_8b',\n"
+        "          'configs.recurrentgemma_2b', 'configs.phi3_vision_4_2b',\n"
         "          'launch.serve', 'serving.engine', 'serving.pool',\n"
         "          'serving.supervisor', 'serving.faults', 'placement.mapper',\n"
         "          'placement.partition', 'placement.tiling',\n"
@@ -124,6 +128,10 @@ def test_entry_points_raise_without_a_device(no_card):
     cfg = smoke_config("mamba2-130m")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "mamba2-130m", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke"])                     # recurrentgemma-2b
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_caches(smoke_config("olmoe-1b-7b"), 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         minit.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -718,6 +718,56 @@ def test_mamba2_smoke_on_card_equals_cpu(card):
         want, wc = lm.decode_step(cpu, cfg, tok, 40 + step, wc, 48)
 
 
+ARCHS = ("mamba2-130m", "musicgen-large", "kimi-k2-1t-a32b", "olmoe-1b-7b",
+         "phi3-medium-14b", "llama3.2-3b", "qwen1.5-4b", "qwen3-8b",
+         "recurrentgemma-2b", "phi-3-vision-4.2b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_smoke_on_card_equals_cpu(card, arch):
+    """Each arch's smoke model in f32 (MoE capacity 8.0) on the card
+    against the port on the CPU, same weights: b 2, s 12, cache 16, then
+    three greedy decode steps; logits and every cache within rtol 1e-4 and
+    an atol of 1e-4 of each tensor's scale, greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_NAMES, smoke_config
+    from repro_torch.models import init as minit, model as lm
+
+    assert ARCHS == ARCH_NAMES
+    cfg = smoke_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    cpu = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = minit.tree_to(cpu, card)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.n_frontend_tokens, cfg.d_model)) * 0.02).float()
+    if cfg.frontend == "audio":
+        batch = {"embeds": torch.from_numpy(rng.normal(
+            size=(2, 12, cfg.d_model)) * 0.02).float()}
+    got, gc = lm.prefill(gpu, cfg, batch, 16)
+    want, wc = lm.prefill(cpu, cfg, batch, 16)
+    pos = 12 + cfg.n_frontend_tokens
+    for step in range(4):
+        pairs = [(got, want)] + [
+            (g[name], w[name]) for gg, ww in zip(gc, wc) for g, w in zip(gg, ww)
+            for name in w]
+        for a, b in pairs:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
+        tok = want[:, -1].argmax(-1)[:, None]
+        assert torch.equal(got[:, -1].argmax(-1).cpu(), tok[:, 0])
+        if step == 3:
+            break
+        got, gc = lm.decode_step(gpu, cfg, tok.to(card), pos + step, gc, 16)
+        want, wc = lm.decode_step(cpu, cfg, tok, pos + step, wc, 16)
+
+
 #: In-edge kinds of the population step: a parallel edge's current, and a
 #: serial edge's ring with its form's update layout (K3's (d*N, B) output
 #: viewed (d, B, N); the dense einsum's contiguous (d, B, N); the event

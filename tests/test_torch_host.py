@@ -218,3 +218,28 @@ def test_switching_policies_equal(policy):
                                         pc.pe_count, pc.n_compilations,
                                         pc.host_bytes_peak)
         assert_same(rc.program, pc.program, policy)
+
+
+#: the per-arch config modules (src/repro/configs/*.py besides the registry)
+CONFIG_MODULES = ["mamba2_130m", "musicgen_large", "kimi_k2_1t_a32b", "olmoe_1b_7b",
+                  "phi3_medium_14b", "llama3_2_3b", "qwen1_5_4b", "qwen3_8b",
+                  "recurrentgemma_2b", "phi3_vision_4_2b"]
+
+
+@pytest.mark.parametrize("module", CONFIG_MODULES)
+def test_config_module_copies_equal(module):
+    """Each per-arch module is the original with only its import lines
+    changed, and gives the same CONFIG and SMOKE."""
+    import importlib
+    from pathlib import Path
+
+    r = importlib.import_module(f"repro.configs.{module}")
+    p = importlib.import_module(f"repro_torch.configs.{module}")
+    assert_same(r.CONFIG, p.CONFIG, f"{module}.CONFIG")
+    assert_same(r.SMOKE, p.SMOKE, f"{module}.SMOKE")
+
+    def body(m):
+        return [line for line in Path(m.__file__).read_text().splitlines()
+                if not line.startswith(("from ", "import "))]
+
+    assert body(r) == body(p)

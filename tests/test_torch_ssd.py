@@ -387,13 +387,13 @@ def test_init_params_follow_the_reference_rules():
 
 
 def test_other_block_types_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        minit.init_params(smoke_config("llama3.2-3b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_caches(smoke_config("recurrentgemma-2b"), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.block_forward("rglru", {}, torch.zeros(1, 1, 4),
-                             smoke_config("recurrentgemma-2b"), mode="train",
+    """Every block type of the registry is ported; a type outside the
+    three raises where the reference's does."""
+    cfg = dataclasses.replace(smoke_config("llama3.2-3b"), block_pattern=("conv",))
+    with pytest.raises(KeyError, match="conv"):
+        minit.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="conv"):
+        blocks.block_forward("conv", {}, torch.zeros(1, 1, 4), cfg, mode="train",
                              pos=0, cache=None)
 
 
