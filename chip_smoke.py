@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Ten phases,
-none of which is caught and swallowed:
+``nvcc``; exits non-zero, printing no result, without them.  Eleven
+phases, none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together), print the card's name
@@ -129,6 +129,24 @@ none of which is caught and swallowed:
    CPU with no routed pair's expert differing; sort and onehot dispatch
    agree on the card at capacity 8.0; then bfloat16 at batch 4 x 1024 + 32
    greedy steps, timed as in (c).
+10. **Train mamba2-130m** (``repro_torch.launch.train``: K5 in the forward
+   pass and its recompute, its gradient ``SSDChunk``'s plain backward,
+   AdamW, checkpoint/restart).  (a) K5's gradient at the train shape (G 32,
+   Q 256, H 24, P 64, N 128, one group) and the smoke shape, the card
+   against autograd through the plain version on the card, within
+   ``lm_close``, one launch a forward; the forward kernel, plain forward
+   and plain backward timed.  (b) Every arch's smoke config in float32
+   (batch 2 x 40, MoE capacity 8.0): one train step on the card against
+   the CPU, same weights and batch: the loss, grad norm and every gradient
+   leaf within ``lm_close``, no routed pair's expert differing.  (c)
+   mamba2-130m at full width and depth in float32, batch 2 x 256: the same,
+   then one AdamW update of the card's gradients on the card and on a CPU
+   copy.  (d) The published bfloat16 through ``train.main`` (30 steps of
+   8 x 1024 tokens, checkpoints every 10 steps, a failure at step 15): it
+   must restore step 10, its loss must fall, and K5 must launch 48 times a
+   step (24 layers, forward and recompute); then a step is timed (host ms
+   to a sync, tokens/s, device ms, launches and busy share, peak memory)
+   and profiled, K5's forward kernels and its plain backward apart.
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -2696,6 +2714,288 @@ def lm_phase(card):
     serve_olmoe(card)
 
 
+# -- 10. train mamba2-130m ---------------------------------------------------------
+#: phase 10 (a): K5's gradient at mamba2-130m's train shape (batch 8 x 1024:
+#: 32 chunks) and its smoke shape (batch 2 x 40: 6 chunks), (G, Q, H, P, N, Hg)
+TRAIN_SSD_SHAPES = [(32, 256, 24, 64, 128, 1), (6, 16, 8, 16, 16, 1)]
+#: phase 10 (c): mamba2-130m at full width and depth in f32: batch, tokens
+TRAIN_F32 = (2, 256)
+#: phase 10 (d): the bf16 run through train.main
+TRAIN_RUN = dict(steps=30, batch=8, seq=1024, ckpt_every=10, failure=15)
+#: the annotation the K5 Function's backward runs under (its ops are plain
+#: PyTorch, so the profiler names them by op, not by kernel)
+K5_BACKWARD = "ssd_chunk_backward"
+K5_KERNELS = ("ssd_scores_kernel", "ssd_chunk_kernel")
+
+
+def k5_gradient(card):
+    """Phase 10 (a): SSDChunk on the card (the kernel forward, the plain
+    backward) against autograd through the plain version on a card copy,
+    within ``lm_close``; one launch a forward, none in the backward.  At
+    the train shape, the forward kernel, the plain forward and the plain
+    backward are timed.  Returns that shape's times."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ssd_chunk import SSDChunk, ssd_chunk, ssd_chunk_backward, ssd_chunk_ref
+
+    times = {}
+    for shape in TRAIN_SSD_SHAPES:
+        ops = [t.requires_grad_() for t in ssd_inputs(shape, seed=21, decay="mamba2")]
+        rng = np.random.default_rng(22)
+        before = launch_counts()["ssd_chunk"]
+        y, state = ssd_chunk(*ops)
+        require(type(y.grad_fn) is SSDChunk._backward_cls,
+                f"ssd_chunk's output has grad_fn {type(y.grad_fn).__name__}")
+        gy, gs = (torch.tensor(rng.normal(size=t.shape), dtype=torch.float32).cuda()
+                  for t in (y, state))
+        got = torch.autograd.grad([y, state], ops, [gy, gs])
+        torch.cuda.synchronize()
+        launched = launch_counts()["ssd_chunk"] - before
+        require(launched == 1, f"K5 launched {launched} times for one forward and backward")
+        ref = [t.detach().clone().requires_grad_() for t in ops]
+        want = torch.autograd.grad(list(ssd_chunk_ref(*ref)), ref, [gy, gs])
+        errs = {name: lm_close(a.cpu(), b.cpu(), f"K5 gradient {name} at {shape}")
+                for name, a, b in zip(("x", "b", "c", "la"), got, want)}
+        print(f"train: K5 gradient at {shape} (G, Q, H, P, N, Hg), card vs autograd "
+              "of the plain version on the card: "
+              + ", ".join(f"g{k} max abs {a:.3e} rel {r:.3e}" for k, (a, r) in errs.items())
+              + "; one launch for the forward, none in the backward")
+        if shape == TRAIN_SSD_SHAPES[0]:
+            x, b, c, la = (t.detach() for t in ops)
+            times = {"forward_ms": device_ms(lambda: ssd_chunk(x, b, c, la), iters=20),
+                     "plain_forward_ms": device_ms(lambda: ssd_chunk_ref(x, b, c, la), iters=5),
+                     "backward_ms": device_ms(
+                         lambda: ssd_chunk_backward(x, b, c, la, gy, gs), iters=5)}
+    print(f"train: K5 at the train shape {TRAIN_SSD_SHAPES[0]}: kernel forward "
+          f"{times['forward_ms']:.5f} ms, plain forward {times['plain_forward_ms']:.5f} "
+          f"ms, plain backward {times['backward_ms']:.5f} ms (device, graph replay)")
+    return times
+
+
+def train_batch(cfg, b, s, seed):
+    """``lm_batch``'s prompt as a train batch: the audio arch's frame
+    embeddings carry no tokens, so it gets labels too, as the reference's
+    smoke tests give it."""
+    batch = lm_batch(cfg, b, s, seed)
+    if cfg.frontend == "audio":
+        rng = np.random.default_rng(seed + 1)
+        batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
+    return batch
+
+
+def hold_train_step(name, cfg, host, batch):
+    """One train step of ``cfg`` on the card against the same step of the
+    port on the CPU, from ``host``'s weights: the loss, grad norm and every
+    gradient leaf within ``lm_close``; the MoE routing pair for pair.
+    Returns the largest share of scale, the K5 launches of the card's
+    gradient, and the card's gradients."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import init as minit, model as lm
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.tree import leaves
+
+    opt = AdamWConfig(warmup_steps=1, total_steps=3)
+    params = minit.tree_to(host, "cuda")
+    with RouteLog() as card_picks:
+        reset_launch_counts()
+        loss, grads = lm.value_and_grad(params, cfg, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        k5 = launch_counts()["ssd_chunk"]
+    with RouteLog() as cpu_picks:
+        c_loss, c_grads = lm.value_and_grad(host, cfg, batch)
+    flips = sum(int((a != c).sum()) for a, c in zip(card_picks, cpu_picks))
+    require(len(card_picks) == len(cpu_picks) and flips == 0,
+            f"{name}: {flips} routed pairs differ between card and CPU")
+    worst = lm_close(loss.cpu(), c_loss, f"{name} loss")
+    for i, (a, b) in enumerate(zip(leaves(grads), leaves(c_grads))):
+        worst = max(worst, lm_close(a.cpu(), b, f"{name} gradient leaf {i}"),
+                    key=lambda e: e[1])
+    step = steps.make_train_step(cfg, opt)
+    _, _, m_card = step(params, init_state(params), {k: v.cuda() for k, v in batch.items()})
+    _, _, m_cpu = step(host, init_state(host), batch)
+    for k in ("loss", "grad_norm", "lr"):
+        worst = max(worst, lm_close(m_card[k].cpu(), m_cpu[k], f"{name} train_step {k}"),
+                    key=lambda e: e[1])
+    return worst, k5, grads, sum(a.numel() for a in card_picks)
+
+
+def train_smoke_archs():
+    """Phase 10 (b): every arch's smoke config in f32 (MoE capacity 8.0),
+    batch 2 x 40: one train step on the card against the CPU."""
+    from repro_torch.configs import ARCH_NAMES, smoke_config
+    from repro_torch.models import init as minit
+
+    worst = 0.0
+    for arch in ARCH_NAMES:
+        cfg = smoke_config(arch)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        (err, rel), k5, _, pairs = hold_train_step(f"{arch}-smoke", cfg, host,
+                                                   train_batch(cfg, 2, 40, seed=0))
+        want = cfg.n_layers if "mamba2" in cfg.block_pattern else 0
+        require(k5 == want, f"{arch}: K5 launched {k5} times in a train step, not {want}")
+        worst = max(worst, rel)
+        print(f"train smoke {arch}: card vs CPU loss, grad norm and every gradient "
+              f"leaf max abs {err:.3e} (rel {rel:.3e}); K5 launches {k5}"
+              + (f"; routed pairs whose expert differs: 0 of {pairs}" if pairs else ""))
+    return worst
+
+
+def train_mamba2_f32():
+    """Phase 10 (c): mamba2-130m at full width and depth in f32 (remat on,
+    as published), batch TRAIN_F32: the train step's gradients on the card
+    against the CPU; then one AdamW update of the card's gradients on the
+    card and on a CPU copy (independent steps are not compared: Adam's
+    first step moves an element by about +-lr, so a gradient near 0 whose
+    sign differs moves it by 2 lr)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init as minit
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b, s = TRAIN_F32
+    t0 = time.perf_counter()
+    (err, rel), k5, grads, _ = hold_train_step("mamba2-130m f32", cfg, host,
+                                               train_batch(cfg, b, s, seed=0))
+    t_hold = time.perf_counter() - t0
+    require(k5 == 2 * cfg.n_layers, f"mamba2 f32: K5 launched {k5} times in a "
+            f"remat train step, not {2 * cfg.n_layers}")
+    opt = AdamWConfig(warmup_steps=1, total_steps=3)
+    params = minit.tree_to(host, "cuda")
+    on_card = apply_updates(params, grads, init_state(params), opt)
+    on_cpu = apply_updates(host, minit.tree_to(grads, "cpu"), init_state(host), opt)
+    upd = max((lm_close(a.cpu(), b_, "mamba2 f32 update") for a, b_ in
+               zip(leaves(on_card[:2]), leaves(on_cpu[:2]))), key=lambda e: e[1])
+    print(f"train: mamba2-130m f32 ({cfg.param_count():,} parameters, remat), batch "
+          f"{b} x {s}: card vs the port on the CPU ({t_hold:.1f} s with the CPU step) "
+          f"loss, grad norm and every gradient max abs {err:.3e} rel {rel:.3e}; K5 "
+          f"launches {k5} (forward and recompute); one AdamW update of the card's "
+          f"gradients, card vs CPU, max abs {upd[0]:.3e} rel {upd[1]:.3e}")
+
+
+def train_profile(step):
+    """One profiled call of ``step``: device ms and launches of its kernels,
+    the top rows, K5's forward kernels and the device time of the kernels
+    launched inside the K5 backward's annotation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total == 0 and e.self_device_time_total > 0
+                   and e.key != K5_BACKWARD),
+                  key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    k5_fwd = sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in K5_KERNELS)) / 1e3
+    k5_bwd = sum(e.device_time_total for e in prof.events()
+                 if e.name == K5_BACKWARD and e.device_type.name == "CPU") / 1e3
+    top = "; ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                    for e in rows[:8])
+    return total, sum(e.count for e in rows), k5_fwd, k5_bwd, top
+
+
+def train_mamba2_bf16(card):
+    """Phase 10 (d): the published bf16 through the user's entry point,
+    train.main, with a failure and a restore; then its step timed on the
+    same weights.  Returns K5's launches in train.main."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps, train
+    from repro_torch.models import init as minit
+    from repro_torch.optim import AdamWConfig, init_state
+
+    cfg = get_config("mamba2-130m")
+    require(cfg.dtype == "bfloat16" and cfg.remat, f"published {cfg.dtype}, remat {cfg.remat}")
+    run = TRAIN_RUN
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out_buf = io.StringIO()
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_buf):
+            out = train.main([
+                "--arch", "mamba2-130m", "--steps", str(run["steps"]),
+                "--batch", str(run["batch"]), "--seq", str(run["seq"]),
+                "--ckpt-every", str(run["ckpt_every"]),
+                "--simulate-failure", str(run["failure"]), "--ckpt-dir", ckpt])
+        t_main = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log = out_buf.getvalue()
+    print("\n".join(f"train.main: {line}" for line in log.splitlines()))
+    restored = run["failure"] // run["ckpt_every"] * run["ckpt_every"]
+    steps_run = run["failure"] + run["steps"] - restored
+    require(f"restored step {restored}" in log, f"train.main did not restore step {restored}")
+    require(out["last_loss"] < out["first_loss"],
+            f"train.main: the loss did not fall: {out['first_loss']} -> {out['last_loss']}")
+    want = 2 * cfg.n_layers * steps_run
+    require(counts["ssd_chunk"] == want,
+            f"train.main: K5 launched {counts['ssd_chunk']} times, not {want} "
+            f"({2 * cfg.n_layers} a step x {steps_run} steps)")
+    print(f"train: train.main ran {steps_run} steps in {t_main:.1f} s (with the CPU "
+          f"init, the data and the checkpoints), restored step {restored} after the "
+          f"failure at {run['failure']}; first loss {out['first_loss']:.4f} -> last-10 "
+          f"mean {out['last_loss']:.4f}; launches {nonzero(counts)}")
+
+    # the step alone, on train.main's weights and data
+    params = minit.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt_state = init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    placed = torch.cuda.memory_allocated()
+    step_fn = steps.make_train_step(cfg, AdamWConfig(
+        lr=1e-3, total_steps=run["steps"], warmup_steps=max(1, run["steps"] // 20)))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                                  global_batch=run["batch"]))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(0).items()}
+    state = [params, opt_state]
+
+    def one_step():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        return float(m["loss"])        # the launcher's one host read a step
+
+    ms = host_ms(one_step, reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    total, n, k5_fwd, k5_bwd, top = train_profile(one_step)
+    tokens = run["batch"] * run["seq"]
+    print(f"train timing [{card}]: mamba2-130m bf16 batch {run['batch']} x {run['seq']} "
+          f"(remat): {ms:.3f} ms a step (host clock to a sync, the loss read), "
+          f"{tokens * 1e3 / ms:.1f} tokens/s; device {total:.3f} ms in {n} launches, "
+          f"busy share {total / ms:.3f}; peak device memory {peak / 2**30:.3f} GiB "
+          f"({placed / 2**30:.3f} GiB of weights and AdamW state placed before)")
+    print(f"train profile [{card}]: one step: K5 forward kernels {k5_fwd:.3f} ms "
+          f"({2 * cfg.n_layers} launches), K5 plain backward {k5_bwd:.3f} ms "
+          f"({cfg.n_layers} calls); top: {top}")
+    del state, params, opt_state, batch
+    torch.cuda.empty_cache()
+    return counts["ssd_chunk"]
+
+
+def train_phase(card):
+    """Phase 10: the training path (repro_torch.launch.train): K5's
+    gradient, every smoke arch's train step and mamba2-130m's at full width
+    held against the CPU, then the bf16 run with a failure and a restore.
+    Returns the K5 launches of train.main and K5's times at its shape."""
+    times = k5_gradient(card)
+    worst = train_smoke_archs()
+    print(f"train smoke: every arch's train step, card vs CPU, largest share of "
+          f"scale {worst:.3e}")
+    train_mamba2_f32()
+    return train_mamba2_bf16(card), times
+
+
 # -- kernel timings --------------------------------------------------------------
 def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
                 extra_fixed_points):
@@ -2961,7 +3261,8 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
         "lif_fixed_point": [*extra_fixed_points,
                             (fixed_point_inputs((512, 64), 1), dict(
                                 alpha=0.5, v_th=64.0, cap=513))],
-        "ssd_chunk": [((1, 256, 24, 64, 128, 1), 1), ((16, 256, 24, 64, 128, 24), 1)],
+        "ssd_chunk": [((16, 256, 24, 64, 128, 1), 1), ((1, 256, 24, 64, 128, 1), 1),
+                      ((16, 256, 24, 64, 128, 24), 1)],
     }
     fns = {"lif_update": lif_row, "lif_step": step_row, "spike_wdm_matmul": wdm_row,
            "spike_wdm_project": project_row, "sparse_gather": gather_row,
@@ -3246,7 +3547,7 @@ def main() -> int:
 
     lap("7. mamba2, and the timings of phases 3-7")
     # 7. serve mamba2-130m: f32 against the CPU (K5 counted around it), bf16 timed
-    cfg32, host32, steps32, greedy32, ssd_launches = serve_mamba2_f32()
+    _, host32, steps32, greedy32, ssd_launches = serve_mamba2_f32()
 
     for name, rep in reports.items():
         time_serving(net, name, rep, batches[0], card)
@@ -3263,6 +3564,11 @@ def main() -> int:
     # 9. the other nine archs: smoke configs, recurrentgemma-2b at full
     # width, olmoe-1b-7b at full width and 4 layers
     lm_phase(card)
+
+    lap("10. train mamba2-130m")
+    # 10. the training path: K5's gradient, every arch's train step against
+    # the CPU, then train.main in bf16 (K5 counted around it alone)
+    train_launches, train_k5 = train_phase(card)
 
     gather_args = max(ell_s, key=lambda e: e[0].numel())
     ga_val, ga_idx, ga_s = gather_args
@@ -3292,13 +3598,15 @@ def main() -> int:
     path["spike_wdm_project"] = (wdm, src, dly, rings[0], 5)
     launches = {k: counts[k] + t_counts[k] + e_counts[k] + s_counts[k]
                 for k in counts}
-    launches["ssd_chunk"] += ssd_launches
-    ssm = cfg32.ssm
-    path["ssd_chunk"] = ((LM_BATCH * -(-LM_PROMPT // ssm.chunk), ssm.chunk,
-                          ssm.expand * cfg32.d_model // ssm.head_dim,
-                          ssm.head_dim, ssm.d_state, ssm.n_groups), 0)
+    # K5: the served prefill's launches and train.main's; its row at the
+    # train step's shape (the prefill's is printed beside it)
+    launches["ssd_chunk"] += ssd_launches + train_launches
+    path["ssd_chunk"] = (TRAIN_SSD_SHAPES[0], 0)
     rows = kernel_rows(path, err, launches, card, temporal_gather,
                        max(x.shape[0] for x, _ in batches), fps[1:])
+    # K5's gradient is plain PyTorch (the reference's is XLA's autodiff)
+    next(r for r in rows if r["name"] == "ssd_chunk")["plain_backward_ms"] = \
+        train_k5["backward_ms"]
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

@@ -1,4 +1,5 @@
-"""Wrapper of the SSD intra-chunk block: plain version on CPU, K5 on CUDA."""
+"""Wrapper of the SSD intra-chunk block: plain version on CPU, K5 on CUDA,
+with a gradient (:class:`SSDChunk`, its backward in :mod:`.backward`)."""
 from __future__ import annotations
 
 import ctypes
@@ -6,6 +7,7 @@ import ctypes
 import torch
 
 from .. import _common
+from .backward import ssd_chunk_backward
 from .ref import ssd_chunk_ref
 
 #: Launches of the CUDA kernel by entry point (the plain version counts none).
@@ -56,10 +58,33 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ``rtol = atol = 1e-4``: they sum in other orders, and the kernel's
     products are three TF32 products each (3xTF32).
     """
-    g, q, h, hg, p, n = _shapes(x, b, c, la)
+    _shapes(x, b, c, la)
     _common.check_contiguous("ssd_chunk", x=x, b=b, c=c, la=la)
+    return SSDChunk.apply(x, b, c, la)
+
+
+class SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient.  The forward is the device's route
+    (the plain version on the CPU, K5 on the card; under activation
+    checkpointing the recompute launches K5 again) and saves its four
+    inputs; the backward is :func:`ssd_chunk_backward` on either device.
+    It never reruns the forward."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, la):
+        ctx.save_for_backward(x, b, c, la)
+        return _forward(x, b, c, la)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        with torch.profiler.record_function("ssd_chunk_backward"):
+            return ssd_chunk_backward(*ctx.saved_tensors, gy, gstate)
+
+
+def _forward(x, b, c, la):
     if _common.on_cpu(x, b, c, la):
         return ssd_chunk_ref(x, b, c, la)
+    g, q, h, hg, p, n = _shapes(x, b, c, la)
     dev = _common.check_cuda("ssd_chunk", x=x, b=b, c=c, la=la)
     _common.check_dtype("ssd_chunk", torch.float32, x=x, b=b, c=c, la=la)
     y = torch.empty_like(x)
@@ -88,4 +113,5 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return y, state
 
 
-__all__ = ["ssd_chunk", "ssd_chunk_ref", "LAUNCHES"]
+__all__ = ["SSDChunk", "ssd_chunk", "ssd_chunk_backward", "ssd_chunk_ref",
+           "LAUNCHES"]

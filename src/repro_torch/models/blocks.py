@@ -3,8 +3,8 @@ SwiGLU/GELU MLP, MoE, Mamba-2 SSD, RG-LRU.
 
 Pure functions over param dicts, in the reference's three modes:
 
-* train   — full sequence, no cache (forward only: the port has no training
-  stack yet)
+* train   — full sequence, no cache (differentiable: the mamba2 block's K5
+  call carries its own gradient, :class:`repro_torch.kernels.ssd_chunk.SSDChunk`)
 * prefill — full sequence, returns the decode cache
 * decode  — one new token against the cache
 

@@ -1,12 +1,14 @@
-"""Model driver (the port of ``repro.models.model``): prefill and decode
-over the stacked layer groups.
+"""Model driver (the port of ``repro.models.model``): the training loss
+and its gradients, prefill and decode over the stacked layer groups.
 
 The reference scans each group's stacked layers with ``jax.lax.scan``; the
 port loops over them in Python and stacks the new caches back into the
 reference's tree (``caches[g][t][name]`` with a leading ``layers`` axis).
-The reference's ``constrain`` (a sharding constraint, the identity without
-a mesh) and its bf16 gradient barrier (the identity in the forward pass)
-are dropped.  ``train_loss`` is not ported yet (ROADMAP §1 item 7).
+In train mode each layer's body runs under activation checkpointing when
+``cfg.remat`` is set (the reference's ``jax.checkpoint`` of its scan body)
+and ends in the bf16 gradient barrier when ``cfg.grad_bf16`` is set.  The
+reference's ``constrain`` (a sharding constraint, the identity without a
+mesh) is dropped.
 Every float32 product runs in full float32: a call refuses to run on the
 card while TF32 is on for matrix products
 (:func:`repro_torch.device.require_full_f32`).
@@ -14,11 +16,14 @@ card while TF32 is on for matrix products
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import require_full_f32, resolve_device
 from .blocks import block_forward, rms_norm
 from .config import ModelConfig
 from .init import group_layers, torch_dtype
+from ..tree import leaves, unflatten_like
 
 f32 = torch.float32
 
@@ -42,17 +47,30 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+class _BF16GradBarrier(torch.autograd.Function):
+    """Identity with a bf16 cotangent (the reference's §Perf H8): pins the
+    gradient of the residual stream to bf16 between layers."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 def _run_groups(params, cfg: ModelConfig, x, *, mode, pos, caches, cache_len):
     """Each pattern group's layers in order; returns (x, new_caches)."""
     require_full_f32(x.device)
+    train = mode == "train"
     new_caches = []
     for gi, (types, repeat) in enumerate(group_layers(cfg)):
         gparams = params["groups"][gi]
         gcache = caches[gi] if caches is not None else None
-        per_layer = []
-        for li in range(repeat):
-            lp = _layer(gparams, li)
-            lc = _layer(gcache, li) if gcache is not None else None
+
+        def body(x, lp, lc, types=types):
+            # types bound now: under remat the body reruns in the backward
             new_lc = []
             for ti, bt in enumerate(types):
                 c = lc[ti] if lc is not None else None
@@ -60,8 +78,20 @@ def _run_groups(params, cfg: ModelConfig, x, *, mode, pos, caches, cache_len):
                     bt, lp[ti], x, cfg,
                     mode=mode, pos=pos, cache=c, cache_len=cache_len,
                 )
+                if cfg.grad_bf16 and train:
+                    x = _BF16GradBarrier.apply(x)
                 new_lc.append(nc)
-            per_layer.append(None if all(c is None for c in new_lc) else new_lc)
+            return x, (None if all(c is None for c in new_lc) else new_lc)
+
+        per_layer = []
+        for li in range(repeat):
+            lp = _layer(gparams, li)
+            lc = _layer(gcache, li) if gcache is not None else None
+            if cfg.remat and train:
+                x, new_lc = checkpoint(body, x, lp, lc, use_reentrant=False)
+            else:
+                x, new_lc = body(x, lp, lc)
+            per_layer.append(new_lc)
         new_caches.append(None if per_layer[0] is None else _stack(per_layer))
     return x, (new_caches if caches is not None or mode == "prefill" else None)
 
@@ -86,6 +116,65 @@ def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head
+
+
+def _next_token_labels(cfg: ModelConfig, batch, x):
+    """``batch["labels"]`` on ``x``'s device, else the token stream shifted
+    by one with ``-100`` at the end (and, for the vision arch, in front of
+    every patch position)."""
+    if batch.get("labels") is not None:
+        return torch.as_tensor(batch["labels"], device=x.device)
+    tokens = torch.as_tensor(batch["tokens"], device=x.device)
+    labels = F.pad(tokens[:, 1:], (0, 1), value=-100)
+    if cfg.frontend == "vision":
+        labels = F.pad(labels, (x.shape[1] - tokens.shape[1], 0), value=-100)
+    return labels
+
+
+def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token cross entropy (an f32 scalar).  batch: tokens (B, S)
+    [+ labels / embeds / patch_embeds].  The reference's order: logits in
+    the model's dtype, then f32, ``logsumexp``, the gold logit, the masked
+    sum over positions with a label, divided by ``max(count, 1)``; with
+    ``cfg.loss_chunk`` dividing S, the sums run over sequence chunks in
+    order (only a (B, chunk, vocab) block of f32 logits at a time)."""
+    x, _ = _embed(params, cfg, batch)
+    x, _ = _run_groups(params, cfg, x, mode="train", pos=0, caches=None,
+                       cache_len=0)
+    labels = _next_token_labels(cfg, batch, x)
+
+    def ce(x_blk, labels_blk):
+        logits = _logits(params, cfg, x_blk).to(f32)
+        mask = labels_blk >= 0
+        safe = torch.where(mask, labels_blk, 0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        return ((lse - gold) * mask).sum(), mask.sum()
+
+    s = x.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and chunk < s and s % chunk == 0:
+        nll_sum = torch.zeros((), dtype=f32, device=x.device)
+        n = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c0 in range(0, s, chunk):
+            nll, cnt = ce(x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+            nll_sum, n = nll_sum + nll, n + cnt
+        return nll_sum / torch.clamp(n, min=1)
+    nll, cnt = ce(x, labels)
+    return nll / torch.clamp(cnt, min=1)
+
+
+def value_and_grad(params, cfg: ModelConfig, batch):
+    """(loss, grads): ``train_loss`` and its gradient with respect to every
+    leaf of ``params``, as a tree of the same structure (detached).  A leaf
+    the loss does not reach (the audio arch's ``tok_embed`` when the batch
+    hands over frame embeddings) gets zeros, as ``jax.grad`` gives it."""
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    with torch.enable_grad():
+        loss = train_loss(unflatten_like(params, flat), cfg, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), unflatten_like(params, grads)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from repro_torch.kernels.lif_update import CurrentEdge, lif_step, lif_update
 from repro_torch.kernels.sparse_gather import sparse_gather
 from repro_torch.kernels.spike_wdm_matmul import spike_wdm_matmul
 from repro_torch.kernels.ssd_chunk import ssd_chunk
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import init as minit, model as lm
 from repro_torch.configs import smoke_config
 
@@ -61,7 +61,9 @@ def test_import_leaves_jax_and_repro_out():
         "          'distributed.sharding', 'distributed.fault_tolerance',\n"
         "          'scaffold.cerebellum', 'scaffold.stimulus',\n"
         "          'core.runtime.profiler', 'core.classifiers.zoo',\n"
-        "          'core.classifiers.mlp', 'core.classifiers.simple'):\n"
+        "          'core.classifiers.mlp', 'core.classifiers.simple',\n"
+        "          'kernels.ssd_chunk.backward', 'data.pipeline', 'optim.adamw',\n"
+        "          'checkpoint.manager', 'launch.steps', 'launch.train', 'tree'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -130,6 +132,8 @@ def test_entry_points_raise_without_a_device(no_card):
         serve.main(["--arch", "mamba2-130m", "--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke"])                     # recurrentgemma-2b
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])     # mamba2-130m
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_caches(smoke_config("olmoe-1b-7b"), 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):

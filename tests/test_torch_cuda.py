@@ -43,7 +43,7 @@ from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_project,
     spike_wdm_project_ref,
 )
-from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+from repro_torch.kernels.ssd_chunk import SSDChunk, ssd_chunk, ssd_chunk_ref
 
 
 def wdm_operands(m, k, n, seed, p=0.3):
@@ -653,6 +653,84 @@ def test_ssd_kernel_grouped_on_card(card, shape, decay):
     yh, sh = ssd_chunk(x, *per_head, la)
     torch.testing.assert_close(yh, yr, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(sh, sr, rtol=1e-4, atol=1e-4)
+
+
+def card_close(got, want, what):
+    """|got - want| <= 1e-4 |want| + 1e-4 max|want| (f32 sums in other
+    orders on each side), as chip_smoke.py's ``lm_close``."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all(), what
+    assert bool((diff <= 1e-4 * want.abs() + 1e-4 * want.abs().max()).all()), (
+        what, float(diff.max()), float(want.abs().max()))
+
+
+#: (G, Q, H, P, N, Hg): mamba2-130m's train step at batch 8 x 1024 (32
+#: chunks, one group), its smoke config at batch 2 x 40, two groups
+SSD_GRAD = [(32, 256, 24, 64, 128, 1), (6, 16, 8, 16, 16, 1), (3, 64, 6, 16, 32, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_GRAD)
+def test_ssd_gradient_on_card(card, shape):
+    """SSDChunk on the card (the kernel forward, the plain backward)
+    against autograd through the plain version on the same inputs and
+    cotangents; one launch for the forward, none in the backward."""
+    *dims, hg = shape
+    ops = [torch.from_numpy(a).to(card).requires_grad_()
+           for a in ssd_operands(*dims, seed=11, decay="mamba2", groups=hg)]
+    before = launch_counts()["ssd_chunk"]
+    y, s = ssd_chunk(*ops)
+    assert type(y.grad_fn) is SSDChunk._backward_cls
+    rng = np.random.default_rng(12)
+    gy, gs = (torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(card)
+              for t in (y, s))
+    got = torch.autograd.grad([y, s], ops, [gy, gs])
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == before + 1
+    ref = [t.detach().clone().requires_grad_() for t in ops]
+    want = torch.autograd.grad(list(ssd_chunk_ref(*ref)), ref, [gy, gs])
+    for name, a, b in zip(("x", "b", "c", "la"), got, want):
+        card_close(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "llama3.2-3b", "olmoe-1b-7b"])
+def test_smoke_train_step_on_card_equals_cpu(card, arch):
+    """One train step of the smoke config in f32 on the card against the
+    same step on the CPU, same weights and batch: the loss, grad norm and
+    every gradient within ``card_close``; then one AdamW update of the
+    card's gradients, on the card and on a CPU copy."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init as minit, model as M
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.tree import leaves
+
+    cfg = smoke_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=40, global_batch=2)).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    before = launch_counts()["ssd_chunk"]
+    loss, grads = M.value_and_grad(minit.tree_to(host, card), cfg, batch)
+    torch.cuda.synchronize()
+    k5 = cfg.n_layers if "mamba2" in cfg.block_pattern else 0
+    assert launch_counts()["ssd_chunk"] == before + k5
+    c_loss, c_grads = M.value_and_grad(host, cfg, batch)
+    card_close(loss, c_loss, "loss")
+    for a, b in zip(leaves(grads), leaves(c_grads)):
+        card_close(a, b, "gradient")
+    opt = AdamWConfig(warmup_steps=1, total_steps=3)
+    on_card = apply_updates(minit.tree_to(host, card), grads,
+                            init_state(minit.tree_to(host, card)), opt)
+    on_cpu = apply_updates(host, minit.tree_to(grads, "cpu"), init_state(host), opt)
+    card_close(on_card[2]["grad_norm"], on_cpu[2]["grad_norm"], "grad_norm")
+    for a, b in zip(leaves(on_card[:2]), leaves(on_cpu[:2])):
+        card_close(a, b, "update")
 
 
 @pytest.mark.cuda

@@ -243,3 +243,41 @@ def test_config_module_copies_equal(module):
                 if not line.startswith(("from ", "import "))]
 
     assert body(r) == body(p)
+
+
+def test_data_pipeline_copy_is_the_reference():
+    """``repro_torch.data.pipeline`` is the original with only its import
+    lines changed."""
+    from pathlib import Path
+
+    import repro.data.pipeline as r
+    import repro_torch.data.pipeline as p
+
+    def body(m):
+        return [line for line in Path(m.__file__).read_text().splitlines()
+                if not line.startswith(("from ", "import "))]
+
+    assert body(r) == body(p)
+
+
+@pytest.mark.parametrize("vocab,seq,batch,n_hosts,host_id", [
+    (50280, 1024, 8, 1, 0), (256, 32, 4, 1, 0), (256, 40, 6, 2, 1), (7, 5, 3, 3, 2)])
+def test_synthetic_lm_batches_are_the_references_bit_for_bit(vocab, seq, batch,
+                                                             n_hosts, host_id):
+    from repro.data import DataConfig as RConfig, SyntheticLM as RLM
+    from repro_torch.data import DataConfig as PConfig, SyntheticLM as PLM
+
+    kw = dict(vocab=vocab, seq_len=seq, global_batch=batch, n_hosts=n_hosts,
+              host_id=host_id)
+    r, p = RLM(RConfig(**kw)), PLM(PConfig(**kw))
+    for step in (0, 1, 15, 29):
+        want, got = r.batch_at(step), p.batch_at(step)
+        assert got.keys() == want.keys() == {"tokens"}
+        assert got["tokens"].dtype == want["tokens"].dtype == np.int32
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    p.load_state_dict({"step": 3})
+    r.load_state_dict({"step": 3})
+    for _, a, b in zip(range(2), iter(p), iter(r)):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    assert p.state_dict() == r.state_dict() == {"step": 4}
+    assert p.local_batch == r.local_batch == batch // n_hosts
