@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Eleven
+``nvcc``; exits non-zero, printing no result, without them.  Twelve
 phases, none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
@@ -147,6 +147,17 @@ phases, none of which is caught and swallowed:
    step (24 layers, forward and recompute); then a step is timed (host ms
    to a sync, tokens/s, device ms, launches and busy share, peak memory)
    and profiled, K5's forward kernels and its plain backward apart.
+11. **The dry run** (``repro_torch.launch.dryrun``).  (a) Every (arch x
+   shape) cell through ``run_cell``, traced on the meta device in a
+   process of its own started before phase 1 (the card hidden from it),
+   its records written to ``build/dryrun.jsonl``: 0 errors, and exactly the
+   reference's skips (long_500k for the eight archs that are not
+   sub-quadratic).  (b) The cells phases 7, 9 and 10 measured (mamba2-130m
+   train at 8 x 1024; recurrentgemma-2b, olmoe-1b-7b at 4 layers and
+   mamba2-130m bf16 prefill at 4 x 1024) counted through ``count_cell``:
+   each roofline bound must not exceed the measured device ms; the
+   predicted peak is printed beside the measured one (the step's
+   arguments and what it allocates), and flagged when more than 25% off.
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -167,9 +178,11 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 from pathlib import Path
@@ -178,14 +191,16 @@ import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
+from repro_torch.launch.hardware import H100  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): device
-# memory bytes/s, int8 and TF32 tensor-core ops/s, f32 (non-tensor-core)
-# flop/s.
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-TF32_OPS_S = 495e12
-F32_OPS_S = 67e12
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W), the port's
+# own set: device memory bytes/s, int8 and TF32 tensor-core ops/s, f32
+# (non-tensor-core) flop/s.
+HBM_BYTES_S = H100.hbm_bandwidth
+INT8_OPS_S = H100.peak_ops_int8
+TF32_OPS_S = H100.peak_flops_tf32
+F32_OPS_S = H100.peak_flops_f32
 
 N_INPUT = 2048
 MICRO_BATCH = 8
@@ -316,6 +331,17 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
     """The least time the card could take: max(bytes/bw, ops/peak)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def other_bytes(args) -> int:
+    """What is allocated on the card besides the step's arguments ``args``
+    (earlier phases' tensors).  The peak since the last reset less this is
+    the step's peak as the dry run counts it: its arguments and what it
+    allocates."""
+    from repro_torch.launch.roofline import storage_bytes
+
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - storage_bytes(args)
 
 
 # -- 1. build and hold each kernel against its plain version -----------------
@@ -2399,7 +2425,10 @@ def serve_mamba2_bf16(card, host32, steps32, greedy32):
         def prefill():
             return lm.prefill(params, cfg, batch, cache_len)
 
+        other = other_bytes((params, batch))
+        torch.cuda.reset_peak_memory_stats()
         _, caches = prefill()
+        pre_peak = torch.cuda.max_memory_allocated() - other
         tok = torch.zeros((LM_BATCH, 1), dtype=torch.int64, device="cuda")
 
         def decode():
@@ -2422,6 +2451,7 @@ def serve_mamba2_bf16(card, host32, steps32, greedy32):
     for what, (total, n, top) in (("prefill", top_p), ("decode step", top_d)):
         print(f"mamba2 profile [{card}]: {what}: device {total:.3f} ms in {n} "
               f"launches; top: {top}")
+    return {"device_ms": pre_dev, "peak_bytes": pre_peak}
 
 
 # -- 9. serve the attention, recurrent and MoE archs -------------------------------
@@ -2543,9 +2573,11 @@ def time_lm(name, card, params, cfg, batch, cache_len):
     """Prefill and decode of ``batch`` timed on the card: host ms to a sync,
     device ms and busy share by the profiler, the top device ops, and the
     peak device memory of these runs (the weights included).  Returns the
-    logits of the prefill and of one decode step."""
+    logits of the prefill and of one decode step, and the prefill's device
+    ms and its peak as the dry run counts it (the first call alone)."""
     from repro_torch.models import model as lm
 
+    other = other_bytes(params)
     torch.cuda.reset_peak_memory_stats()
     dev_batch = {k: v.cuda() for k, v in batch.items()}
     pos = batch["embeds" if "embeds" in batch else "tokens"].shape[1] \
@@ -2555,6 +2587,7 @@ def time_lm(name, card, params, cfg, batch, cache_len):
             return lm.prefill(params, cfg, dev_batch, cache_len)
 
         first, caches = prefill()
+        pre_peak = torch.cuda.max_memory_allocated() - other
         tok = first[:, -1].argmax(-1)[:, None]
 
         def decode():
@@ -2573,7 +2606,7 @@ def time_lm(name, card, params, cfg, batch, cache_len):
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"{name} profile [{card}]: prefill top: {pre_top}")
     print(f"{name} profile [{card}]: decode step top: {dec_top}")
-    return first, step
+    return first, step, {"device_ms": pre_dev, "peak_bytes": pre_peak}
 
 
 def serve_recurrentgemma_bf16(card, host32):
@@ -2602,7 +2635,7 @@ def serve_recurrentgemma_bf16(card, host32):
           f"{peak / 2**30:.3f} GiB")
     params = minit.tree_to(minit.tree_to(host32, "cuda"), torch.bfloat16)
     batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0)
-    first, step = time_lm("recurrentgemma-2b bf16", card, params, cfg, batch,
+    first, step, measured = time_lm("recurrentgemma-2b bf16", card, params, cfg, batch,
                           LM_PROMPT + LM_STEPS)
     require(bool(torch.isfinite(first).all() and torch.isfinite(step).all()),
             "recurrentgemma-2b bf16: logits not finite")
@@ -2611,6 +2644,7 @@ def serve_recurrentgemma_bf16(card, host32):
           f"serve.main's on {agree:.2f} of the batch")
     del params
     torch.cuda.empty_cache()
+    return measured
 
 
 class RouteLog:
@@ -2695,23 +2729,26 @@ def serve_olmoe(card):
     print(f"olmoe-1b-7b bf16 [{card}]: batch {LM_BATCH} x {LM_PROMPT} + {LM_STEPS} "
           f"greedy steps in {t_run:.3f} s, logits finite; greedy tokens of request "
           f"0: {run[1][0, :12].tolist()}")
-    time_lm(f"olmoe-1b-7b {OLMOE_LAYERS}L bf16", card, params, cfg16, batch,
-            LM_PROMPT + LM_STEPS + 1)
+    measured = time_lm(f"olmoe-1b-7b {OLMOE_LAYERS}L bf16", card, params, cfg16,
+                       batch, LM_PROMPT + LM_STEPS + 1)[2]
     del params
     torch.cuda.empty_cache()
+    return measured
 
 
 def lm_phase(card):
     """Phase 9: the attention, recurrent and MoE archs (no kernel of ours
     runs on their path: the reference has no Pallas kernel for these
-    blocks; the mamba2 smoke config's prefill launches K5)."""
+    blocks; the mamba2 smoke config's prefill launches K5).  Returns the
+    device ms and peaks of the two bf16 prefills (phase 11 reads them)."""
     worst, launches = serve_smoke_archs()
     print(f"lm smoke: all archs' card vs CPU within tolerance, largest share of "
           f"scale {worst:.3e}; launches on the smoke path {nonzero(launches)}")
     host32 = serve_recurrentgemma_f32()
-    serve_recurrentgemma_bf16(card, host32)
+    measured = {"recurrentgemma-2b prefill": serve_recurrentgemma_bf16(card, host32)}
     del host32
-    serve_olmoe(card)
+    measured[f"olmoe-1b-7b {OLMOE_LAYERS}L prefill"] = serve_olmoe(card)
+    return measured
 
 
 # -- 10. train mamba2-130m ---------------------------------------------------------
@@ -2903,12 +2940,14 @@ def train_profile(step):
 def train_mamba2_bf16(card):
     """Phase 10 (d): the published bf16 through the user's entry point,
     train.main, with a failure and a restore; then its step timed on the
-    same weights.  Returns K5's launches in train.main."""
+    same weights.  Returns K5's launches in train.main, and the step's
+    device ms and its peak as the dry run counts it (phase 11 reads them)."""
     import io
     import shutil
     import tempfile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import storage_bytes
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import steps, train
@@ -2966,6 +3005,7 @@ def train_mamba2_bf16(card):
         state[0], state[1], m = step_fn(state[0], state[1], batch)
         return float(m["loss"])        # the launcher's one host read a step
 
+    other = placed - storage_bytes((params, opt_state))
     ms = host_ms(one_step, reps=5)
     peak = torch.cuda.max_memory_allocated()
     total, n, k5_fwd, k5_bwd, top = train_profile(one_step)
@@ -2980,20 +3020,184 @@ def train_mamba2_bf16(card):
           f"({cfg.n_layers} calls); top: {top}")
     del state, params, opt_state, batch
     torch.cuda.empty_cache()
-    return counts["ssd_chunk"]
+    return counts["ssd_chunk"], {"device_ms": total, "peak_bytes": peak - other}
 
 
 def train_phase(card):
     """Phase 10: the training path (repro_torch.launch.train): K5's
     gradient, every smoke arch's train step and mamba2-130m's at full width
     held against the CPU, then the bf16 run with a failure and a restore.
-    Returns the K5 launches of train.main and K5's times at its shape."""
+    Returns the K5 launches of train.main, K5's times at its shape, and the
+    bf16 step's device ms and peak."""
     times = k5_gradient(card)
     worst = train_smoke_archs()
     print(f"train smoke: every arch's train step, card vs CPU, largest share of "
           f"scale {worst:.3e}")
     train_mamba2_f32()
-    return train_mamba2_bf16(card), times
+    launches, measured = train_mamba2_bf16(card)
+    return launches, times, measured
+
+
+# -- 11. the dry run ---------------------------------------------------------------
+#: phase 11 (a): where the sweep's records go, and the cells the reference
+#: skips (its shape_applicable: long_500k for every arch that is not
+#: sub-quadratic)
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun.jsonl"
+DRYRUN_SKIPS = {(arch, "long_500k") for arch in (
+    "musicgen-large", "kimi-k2-1t-a32b", "olmoe-1b-7b", "phi3-medium-14b",
+    "llama3.2-3b", "qwen1.5-4b", "qwen3-8b", "phi-3-vision-4.2b")}
+#: phase 11 (b): a predicted peak further than this share from the measured
+#: one is printed as such (and logged in ROADMAP.md), not failed
+PEAK_OFF = 0.25
+#: the most phase 11 waits for the worker once phases 1-10 are done
+DRYRUN_WAIT_S = 600
+
+
+def measured_cells():
+    """Phase 11 (b): the cells that phases 7, 9 and 10 measure, as (name,
+    config, kind, batch, positions)."""
+    from repro_torch.configs import get_config
+
+    olmoe = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=OLMOE_LAYERS)
+    return [
+        ("mamba2-130m train", get_config("mamba2-130m"), "train",
+         TRAIN_RUN["batch"], TRAIN_RUN["seq"]),
+        ("recurrentgemma-2b prefill", get_config("recurrentgemma-2b"), "prefill",
+         LM_BATCH, LM_PROMPT),
+        (f"olmoe-1b-7b {OLMOE_LAYERS}L prefill", olmoe, "prefill", LM_BATCH, LM_PROMPT),
+        ("mamba2-130m prefill", get_config("mamba2-130m"), "prefill", LM_BATCH,
+         LM_PROMPT),
+    ]
+
+
+@contextlib.contextmanager
+def k5_backward_counted():
+    """Count the bytes and FLOPs of K5's plain backward apart while a step
+    is counted: each call runs under a second counter of its own (the
+    dry run's counter still sees every op)."""
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.launch import roofline
+
+    plain, seen = ops.ssd_chunk_backward, {"bytes": 0, "flops": 0, "calls": 0}
+
+    def counted(*args):
+        with roofline._OpCounter() as inner:
+            out = plain(*args)
+        seen["bytes"] += inner.bytes
+        seen["flops"] += sum(inner.flops.values())
+        seen["calls"] += 1
+        return out
+
+    ops.ssd_chunk_backward = counted
+    try:
+        yield seen
+    finally:
+        ops.ssd_chunk_backward = plain
+
+
+def dryrun_worker(conn, out_path):
+    """Phase 11's host half, in a process of its own beside phases 1-10,
+    with the card hidden: every (arch x shape) cell through ``run_cell``
+    (records to ``out_path``), then the measured cells through
+    ``count_cell``.  Sends ("ok", records, cells, seconds, card seen) or
+    ("error", traceback)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        torch.set_num_threads(1)
+        from repro_torch.configs import ARCH_NAMES
+        from repro_torch.launch import dryrun, roofline
+        from repro_torch.launch.shapes import SHAPES
+
+        t0 = time.perf_counter()
+        records = []
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "w") as f:
+            for arch in ARCH_NAMES:
+                for shape in SHAPES:
+                    records.append(dryrun.run_cell(arch, shape, verbose=False))
+                    f.write(json.dumps(records[-1]) + "\n")
+        cells = []
+        for name, cfg, kind, b, seq in measured_cells():
+            with k5_backward_counted() as k5_bwd:
+                count = dryrun.count_cell(cfg, kind, b, seq)
+            terms = roofline.analyze(count)
+            cells.append(dict(name=name, kind=kind, b=b, seq=seq, k5_backward=k5_bwd,
+                              compute_ms=terms.compute_s * 1e3,
+                              memory_ms=terms.memory_s * 1e3,
+                              dominant=terms.dominant, flops=terms.flops,
+                              flops_by_dtype=terms.flops_by_dtype,
+                              hbm_bytes=terms.hbm_bytes, peak_bytes=count.peak_bytes,
+                              seconds=count.seconds))
+        conn.send(("ok", records, cells, time.perf_counter() - t0,
+                   torch.cuda.is_available()))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def dryrun_phase(card, conn, proc, measured):
+    """Phase 11: (a) the sweep's records, one line a cell, held to 0 errors
+    and the reference's skips; (b) each measured cell's bound beside its
+    device ms (the bound may not exceed it) and its predicted peak beside
+    the measured one.  Returns the rows of (b)."""
+    require(conn.poll(DRYRUN_WAIT_S),
+            f"dry run: no result from the worker within {DRYRUN_WAIT_S} s")
+    msg = conn.recv()
+    proc.join(timeout=60)
+    require(msg[0] == "ok", f"dry run: the worker failed:\n{msg[-1]}")
+    _, records, cells, seconds, saw_card = msg
+    require(not saw_card, "dry run: the worker saw a card")
+    for r in records:
+        head = f"dryrun: {r['arch']} x {r['shape']}: {r['status']}"
+        if r["status"] == "ok":
+            mem = r["memory_analysis"]
+            print(f"{head}, {r['dominant']}; compute {r['compute_s'] * 1e3:.3f} ms, "
+                  f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.3f} ms; peak "
+                  f"{mem['peak_bytes'] / 2**30:.3f} GiB, fits one card "
+                  f"{mem['fits_one_card']}; traced in {r['compile_s']} s")
+        else:
+            print(f"{head}: {r.get('reason') or r.get('error')}")
+    n = {k: sum(r["status"] == k for r in records) for k in ("ok", "skipped", "error")}
+    skips = {(r["arch"], r["shape"]) for r in records if r["status"] == "skipped"}
+    print(f"dryrun: {n['ok']} ok, {n['skipped']} skipped, {n['error']} errors of "
+          f"{len(records)} cells, swept in {seconds:.1f} s on the host with no card "
+          f"visible (records in {DRYRUN_OUT.relative_to(DRYRUN_OUT.parents[1])})")
+    require(n["error"] == 0, f"dry run: {n['error']} cells failed")
+    require(skips == DRYRUN_SKIPS and n["ok"] + n["skipped"] == len(records) == 40,
+            f"dry run: skipped {sorted(skips)}, the reference skips "
+            f"{sorted(DRYRUN_SKIPS)}")
+    rows = []
+    for c in cells:
+        m = measured[c["name"]]
+        bound = max(c["compute_ms"], c["memory_ms"])
+        off = c["peak_bytes"] / m["peak_bytes"] - 1
+        row = dict(c, bound_ms=bound, device_ms=m["device_ms"],
+                   share=bound / m["device_ms"], measured_peak_bytes=m["peak_bytes"],
+                   peak_off=off)
+        rows.append(row)
+        print(f"dryrun vs measured [{card}]: {c['name']} (batch {c['b']} x "
+              f"{c['seq']}): bound {bound:.3f} ms by {c['dominant']} (compute "
+              f"{c['compute_ms']:.3f} ms, memory {c['memory_ms']:.3f} ms, "
+              f"collective 0 ms; {c['flops']:.4e} FLOPs "
+              f"{ {k: f'{v:.4e}' for k, v in c['flops_by_dtype'].items()} }, "
+              f"{c['hbm_bytes']:.4e} bytes); measured device {m['device_ms']:.3f} "
+              f"ms; bound / measured {bound / m['device_ms']:.3f}; peak predicted "
+              f"{c['peak_bytes'] / 2**30:.3f} GiB, measured "
+              f"{m['peak_bytes'] / 2**30:.3f} GiB ({off:+.3f})"
+              + (f" MORE THAN {PEAK_OFF:.0%} OFF" if abs(off) > PEAK_OFF else ""))
+        if c["k5_backward"]["calls"]:
+            k5 = c["k5_backward"]
+            print(f"dryrun vs measured [{card}]: {c['name']}: K5's plain backward "
+                  f"({k5['calls']} calls) {k5['bytes']:.4e} bytes, "
+                  f"{k5['bytes'] / c['hbm_bytes']:.3f} of the step's, "
+                  f"{k5['bytes'] / HBM_BYTES_S * 1e3:.3f} ms at the memory rate; "
+                  f"{k5['flops']:.4e} FLOPs")
+        require(bound <= m["device_ms"],
+                f"dry run: {c['name']}'s bound {bound:.3f} ms exceeds its measured "
+                f"{m['device_ms']:.3f} ms: a faulty count")
+    return rows
 
 
 # -- kernel timings --------------------------------------------------------------
@@ -3207,18 +3411,18 @@ def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
         return t
 
     def ssd_row(shape, seed):
+        # the package's count (ssd_chunk_cost, which the dry run books too):
         # each operand read once (B and C once per group), y and the state
-        # written once; the products this function needs: the scores C.B^T
-        # once a group (they carry no decay, so the heads of a group share
-        # them) and over j <= i only (the causal half is zero by
-        # construction), the decayed scores times X a head, and the state's;
-        # each runs as three TF32 products (3xTF32)
+        # written once; the scores C.B^T once a group over j <= i, the
+        # decayed scores times X a head, and the state's; each product runs
+        # as three TF32 products (3xTF32)
+        from repro_torch.kernels.ssd_chunk import ssd_chunk_cost
+
         g, q, h, p, n, hg = shape
         ops = ssd_inputs(shape, seed)
         pairs = q * (q + 1) // 2
-        flops = g * hg * pairs * 2 * n + g * h * (pairs * 2 * p + 2 * q * n * p)
+        flops, n_bytes = ssd_chunk_cost(g, q, h, p, n, hg)
         per_head = g * h * (pairs * (2 * n + 2 * p) + 2 * q * n * p)
-        n_bytes = 4 * (2 * g * q * h * p + 2 * g * q * hg * n + g * q * h + g * h * n * p)
         t = timed(
             lambda: ssd_chunk(*ops), lambda: ssd_chunk_ref(*ops), None,
             n_bytes, 3 * flops, TF32_OPS_S, plain_iters=5,
@@ -3346,7 +3550,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; this test needs the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
     from repro_torch.kernels import (
         KERNEL_OPS, build_kernels, launch_counts, reset_launch_counts,
     )
@@ -3367,6 +3570,14 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     require(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
+    # 11. the dry run's sweep needs no card: it runs beside phases 1-10 in a
+    # daemonic process (ended with the script whatever happens)
+    ctx = get_context("spawn")
+    dry_conn, dry_send = ctx.Pipe(duplex=False)
+    dry_proc = ctx.Process(target=dryrun_worker, args=(dry_send, DRYRUN_OUT),
+                           daemon=True)
+    dry_proc.start()
+    dry_send.close()
 
     # 1. build
     t0 = time.perf_counter()
@@ -3548,12 +3759,13 @@ def main() -> int:
     lap("7. mamba2, and the timings of phases 3-7")
     # 7. serve mamba2-130m: f32 against the CPU (K5 counted around it), bf16 timed
     _, host32, steps32, greedy32, ssd_launches = serve_mamba2_f32()
+    measured = {}
 
     for name, rep in reports.items():
         time_serving(net, name, rep, batches[0], card)
         time_temporal(net, name, rep, batches[1], card)
     time_engine(net, reports, engine, traffic, e_stats, e_rps, card)
-    serve_mamba2_bf16(card, host32, steps32, greedy32)
+    measured["mamba2-130m prefill"] = serve_mamba2_bf16(card, host32, steps32, greedy32)
 
     lap("8. the cerebellum scaffold")
     # 8. the cerebellum scaffold at 10k and 100k neurons, its paths' counts
@@ -3563,12 +3775,12 @@ def main() -> int:
     lap("9. serve the attention, recurrent and MoE archs")
     # 9. the other nine archs: smoke configs, recurrentgemma-2b at full
     # width, olmoe-1b-7b at full width and 4 layers
-    lm_phase(card)
+    measured.update(lm_phase(card))
 
     lap("10. train mamba2-130m")
     # 10. the training path: K5's gradient, every arch's train step against
     # the CPU, then train.main in bf16 (K5 counted around it alone)
-    train_launches, train_k5 = train_phase(card)
+    train_launches, train_k5, measured["mamba2-130m train"] = train_phase(card)
 
     gather_args = max(ell_s, key=lambda e: e[0].numel())
     ga_val, ga_idx, ga_s = gather_args
@@ -3607,6 +3819,10 @@ def main() -> int:
     # K5's gradient is plain PyTorch (the reference's is XLA's autodiff)
     next(r for r in rows if r["name"] == "ssd_chunk")["plain_backward_ms"] = \
         train_k5["backward_ms"]
+
+    lap("11. the dry run")
+    # 11. the dry run: the sweep's records, and the measured cells' bounds
+    dryrun_phase(card, dry_conn, dry_proc, measured)
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

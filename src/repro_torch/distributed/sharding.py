@@ -11,8 +11,8 @@ nothing else:
   run drives the whole placement path with no data movement.
 * :func:`snn_rules` is the logical-axis rules table of the SNN runtime.
 * :func:`snn_mesh` is ``None`` on one card: the identity fallback.  A
-  mesh over several cards is not ported yet (``ROADMAP.md``, queue 1
-  item 8, multi-card placement).
+  mesh over several cards is not ported yet (``ROADMAP.md`` §1 item 2,
+  multi-card placement).
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ import torch
 #: Where the multi-card placement stands: the queue item that ports it.
 MULTI_CARD_ITEM = (
     "multi-card shard(mesh=) and placement-driven put are not ported yet "
-    "(ROADMAP.md, queue 1 item 8: multi-card placement); the port runs on "
-    "one card"
+    "(ROADMAP.md §1 item 2: multi-card placement); the port runs on one "
+    "card"
 )
 
 

@@ -16,6 +16,12 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True iff every tensor lies on the meta device (a dry run: shapes
+    and dtypes, no storage)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def check_cuda(name: str, strided=(), **tensors: torch.Tensor) -> torch.device:
     """Every tensor on one CUDA device and contiguous, except those named in
     ``strided`` (whose kernel takes their strides); returns that device."""

@@ -1,5 +1,7 @@
 """Wrapper of the SSD intra-chunk block: plain version on CPU, K5 on CUDA,
-with a gradient (:class:`SSDChunk`, its backward in :mod:`.backward`)."""
+shapes only on the meta device, with a gradient (:class:`SSDChunk`, its
+backward in :mod:`.backward`).  :func:`ssd_chunk_cost` counts one call's
+work."""
 from __future__ import annotations
 
 import ctypes
@@ -16,6 +18,8 @@ LAUNCHES = {"ssd_chunk": 0}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
              + [ctypes.c_int, ctypes.c_void_p])
 _fn = _scratch_floats = None
+#: the meta route's operator library, defined at its first call
+_meta_lib = None
 
 
 def _shapes(x, b, c, la):
@@ -51,7 +55,10 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ``state`` ([G,] H, N, P).  Without ``G`` it is the reference's
     single-chunk call.  Every operand must be contiguous, on either device.
 
-    CPU tensors run :func:`ssd_chunk_ref`; CUDA tensors run the CUDA kernel
+    CPU tensors run :func:`ssd_chunk_ref`; meta tensors (a dry run) give
+    outputs of the kernel's shapes and dtype through the operator
+    ``repro_torch::ssd_chunk``, whose FLOPs ``torch.utils.flop_counter``
+    takes from :func:`ssd_chunk_cost`; CUDA tensors run the CUDA kernel
     ``csrc/ssd_chunk.cu`` (f32 operands) or raise: one call of its C entry
     launches two grids, the group scores ``C.B^T`` into a scratch buffer,
     then the per-head blocks.  The two agree within the reference's
@@ -81,10 +88,59 @@ class SSDChunk(torch.autograd.Function):
             return ssd_chunk_backward(*ctx.saved_tensors, gy, gstate)
 
 
+def ssd_chunk_cost(g: int, q: int, h: int, p: int, n: int, hg: int):
+    """(flops, bytes) of one call over ``g`` chunks of ``q`` positions,
+    ``h`` heads of width ``p``, state ``n`` and ``hg`` groups of B and C.
+
+    The products the function needs: the scores ``C.B^T`` once a group
+    (they carry no decay, so a group's heads share them) and over ``j <=
+    i`` only (the causal half is zero by construction), the decayed scores
+    times X a head, and the chunk state's.  Bytes: each f32 operand read
+    once (B and C once a group), ``y`` and the state written once."""
+    pairs = q * (q + 1) // 2
+    flops = g * hg * pairs * 2 * n + g * h * (pairs * 2 * p + 2 * q * n * p)
+    n_bytes = 4 * (2 * g * q * h * p + 2 * g * q * hg * n + g * q * h
+                   + g * h * n * p)
+    return flops, n_bytes
+
+
+def _meta_outputs(x, b, c, la):
+    """The kernel's outputs, shapes and dtype only."""
+    h, n, p = x.shape[-2], b.shape[-1], x.shape[-1]
+    return (torch.empty_like(x),
+            x.new_empty(x.shape[:-3] + (h, n, p), dtype=torch.float32))
+
+
+def _meta_flops(x_shape, b_shape, c_shape, la_shape, out_shape=None, **kwargs):
+    g = x_shape[0] if len(x_shape) == 4 else 1
+    q, h, p = x_shape[-3:]
+    hg, n = b_shape[-2:]
+    return ssd_chunk_cost(g, q, h, p, n, hg)[0]
+
+
+def _meta_op():
+    """``repro_torch::ssd_chunk``: a Meta kernel only (no other device has
+    one), with its FLOPs registered for ``torch.utils.flop_counter``."""
+    global _meta_lib
+    if _meta_lib is None:
+        from torch.utils.flop_counter import register_flop_formula
+
+        lib = torch.library.Library("repro_torch", "FRAGMENT")
+        lib.define("ssd_chunk(Tensor x, Tensor b, Tensor c, Tensor la) "
+                   "-> (Tensor, Tensor)")
+        lib.impl("ssd_chunk", _meta_outputs, "Meta")
+        register_flop_formula(torch.ops.repro_torch.ssd_chunk)(_meta_flops)
+        _meta_lib = lib
+    return torch.ops.repro_torch.ssd_chunk.default
+
+
 def _forward(x, b, c, la):
     if _common.on_cpu(x, b, c, la):
         return ssd_chunk_ref(x, b, c, la)
     g, q, h, hg, p, n = _shapes(x, b, c, la)
+    if _common.on_meta(x, b, c, la):
+        _common.check_dtype("ssd_chunk", torch.float32, x=x, b=b, c=c, la=la)
+        return _meta_op()(x, b, c, la)
     dev = _common.check_cuda("ssd_chunk", x=x, b=b, c=c, la=la)
     _common.check_dtype("ssd_chunk", torch.float32, x=x, b=b, c=c, la=la)
     y = torch.empty_like(x)
@@ -113,5 +169,5 @@ def _forward(x, b, c, la):
     return y, state
 
 
-__all__ = ["SSDChunk", "ssd_chunk", "ssd_chunk_backward", "ssd_chunk_ref",
-           "LAUNCHES"]
+__all__ = ["SSDChunk", "ssd_chunk", "ssd_chunk_backward", "ssd_chunk_cost",
+           "ssd_chunk_ref", "LAUNCHES"]

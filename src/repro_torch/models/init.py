@@ -10,9 +10,11 @@ same weights, hand the JAX tree over as NumPy arrays
 
 The shape tables of the three block types (``attn``, ``mamba2``,
 ``rglru``, each with its dense or MoE feed-forward leaves ``ffn.*``) are
-copied; they also give :func:`param_count`.  The reference's logical
-sharding specs (``param_specs``) are not ported: the port runs on one
-card.
+copied; they also give :func:`param_count`.  The reference's
+``param_specs`` (logical sharding axes) is not ported: the port runs on
+one card.  The port's :func:`param_specs` is the shape tree of
+``init_params`` instead (the reference's ``jax.eval_shape(init_params)``),
+which the dry run traces with.
 """
 from __future__ import annotations
 
@@ -200,6 +202,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         ])
     params["groups"] = groups
     return tree_to(params, dev)
+
+
+def param_specs(cfg: ModelConfig, device="meta") -> dict:
+    """The tree of :func:`init_params` (keys, shapes and dtypes) with
+    nothing drawn: uninitialized tensors on ``device``, by default the meta
+    device, which allocates nothing.  The reference's
+    ``jax.eval_shape(init_params)``, which the dry run traces with."""
+    dt = torch_dtype(cfg)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    params = {"tok_embed": empty(cfg.vocab, cfg.d_model),
+              "final_norm": empty(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = empty(cfg.d_model, cfg.vocab)
+    params["groups"] = [
+        [{name: empty(repeat, *shape) for name, shape in block_shapes(cfg, bt).items()}
+         for bt in types]
+        for types, repeat in group_layers(cfg)
+    ]
+    return params
 
 
 def tree_to(tree, device):

@@ -63,7 +63,9 @@ def test_import_leaves_jax_and_repro_out():
         "          'core.runtime.profiler', 'core.classifiers.zoo',\n"
         "          'core.classifiers.mlp', 'core.classifiers.simple',\n"
         "          'kernels.ssd_chunk.backward', 'data.pipeline', 'optim.adamw',\n"
-        "          'checkpoint.manager', 'launch.steps', 'launch.train', 'tree'):\n"
+        "          'checkpoint.manager', 'launch.steps', 'launch.train', 'tree',\n"
+        "          'launch.shapes', 'launch.roofline', 'launch.dryrun',\n"
+        "          'launch.hardware'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -182,7 +184,10 @@ def _meta(shape, dtype):
 def test_kernel_wrappers_never_fall_back():
     """A tensor that is not on the CPU goes to the kernel path, which takes
     only CUDA tensors: anything else raises instead of running the plain
-    version (no kernel is built or launched)."""
+    version (no kernel is built or launched).  The one exception is K5's
+    meta route, chosen by the device as the CPU route is: all-meta
+    operands (the dry run's) give outputs of the kernel's shapes, launch
+    nothing and run no plain version; a mix of devices still raises."""
     f32, i8, i32 = torch.float32, torch.int8, torch.int32
     with pytest.raises(ValueError, match="CUDA device"):
         lif_update(*(_meta((4, 3), f32) for _ in range(3)), alpha=0.5, v_th=1.0)
@@ -195,8 +200,16 @@ def test_kernel_wrappers_never_fall_back():
         sparse_gather(_meta((6, 3), f32), _meta((6, 3), i32), _meta((5, 2), f32))
     with pytest.raises(ValueError, match="CUDA device"):
         lif_parallel_scan(_meta((5, 3), f32), alpha=0.5)
+    from repro_torch.kernels import launch_counts
+
+    before = launch_counts()
+    y, state = ssd_chunk(_meta((8, 2, 4), f32), _meta((8, 2, 3), f32),
+                         _meta((8, 2, 3), f32), _meta((8, 2), f32))
+    assert (y.device.type, tuple(y.shape)) == ("meta", (8, 2, 4))
+    assert (state.device.type, tuple(state.shape)) == ("meta", (2, 3, 4))
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="CUDA device"):
-        ssd_chunk(_meta((8, 2, 4), f32), _meta((8, 2, 3), f32),
+        ssd_chunk(_meta((8, 2, 4), f32), torch.zeros((8, 2, 3)),
                   _meta((8, 2, 3), f32), _meta((8, 2), f32))
     # mixed CPU / other-device operands are refused as well
     with pytest.raises(ValueError, match="CUDA device"):

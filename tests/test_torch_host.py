@@ -281,3 +281,73 @@ def test_synthetic_lm_batches_are_the_references_bit_for_bit(vocab, seq, batch,
         np.testing.assert_array_equal(a["tokens"], b["tokens"])
     assert p.state_dict() == r.state_dict() == {"step": 4}
     assert p.local_batch == r.local_batch == batch // n_hosts
+
+
+# -- the dry run's host copies: the HLO collective parser and the shapes ----------------
+#: tests/test_roofline.py's SYNTH_HLO and more lines: the async form, a tuple
+#: result, all-to-all, a group given by the iota form, one given by no form
+#: (the default group), an unknown dtype (no bytes) and a comment
+HLO_LINES = [
+    "  %ar = bf16[8,512]{1,0} all-reduce(%x), replica_groups={{0,1,2,3}}, to_apply=%add",
+    "  %ag = f32[16,1024]{1,0} all-gather(%x), replica_groups=[4,8]<=[32], dimensions={0}",
+    "  %rs = f32[4,256]{1,0} reduce-scatter(%ag), replica_groups={{0,1}}, to_apply=%add",
+    "  %cp = s8[128]{0} collective-permute(%x), source_target_pairs={{0,1}}",
+    "  // %dead = bf16[9999,9999] all-reduce(%x)  (comment: must be ignored)",
+    "  %ars = (bf16[64]{0}, bf16[64]{0}) all-reduce-start(%a, %b), replica_groups={{0,1}}",
+    "  %a2a = (f32[8,32]{1,0}, f32[8,32]{1,0}) all-to-all(%p, %q), replica_groups={{0,1,2,3,4,5,6,7}}",
+    "  %agd = u8[1000]{0} all-gather(%y), dimensions={0}",
+    "  %ags = (s32[3,5]{1,0}, f32[]) all-gather-start(%z), replica_groups=[2,16]<=[32]",
+    "  %odd = token[] all-reduce(%t), replica_groups={{0,1}}",
+    "  %cps = f8e4m3fn[2,2,2]{2,1,0} collective-permute-start(%w), source_target_pairs={{1,0}}",
+    "  %add.1 = f32[8]{0} add(%u, %v)",
+]
+
+
+@pytest.mark.parametrize("lines", [HLO_LINES[:5], HLO_LINES, HLO_LINES[5:], []])
+@pytest.mark.parametrize("link_bw,group", [(50e9, 16), (450e9, 4)])
+def test_collective_parser_copy_is_the_reference(lines, link_bw, group):
+    from repro.launch import roofline as r
+    from repro_torch.launch import roofline as p
+
+    text = "HloModule test\n" + "\n".join(lines)
+    want = r.collective_bytes_from_hlo(text, link_bw=link_bw, default_group=group)
+    got = p.collective_bytes_from_hlo(text, link_bw=link_bw, default_group=group)
+    assert got.bytes_by_type == want.bytes_by_type
+    assert got.count_by_type == want.count_by_type
+    assert got.ring_time_s == want.ring_time_s
+    assert got.total_bytes == want.total_bytes
+
+
+def test_roofline_helpers_are_the_references():
+    from repro.launch import roofline as r
+    from repro_torch.launch import roofline as p
+
+    assert p._DTYPE_BYTES == r._DTYPE_BYTES and p._COLLECTIVES == r._COLLECTIVES
+    for name in ("_SHAPE_RE", "_GROUPS_RE", "_GROUPS_IOTA_RE"):
+        assert getattr(p, name).pattern == getattr(r, name).pattern, name
+    for dtype in list(r._DTYPE_BYTES) + ["token", "xyz"]:
+        for dims in ("", "7", "3,5", "2,0,4"):
+            assert p._shape_bytes(dtype, dims) == r._shape_bytes(dtype, dims)
+    for op in r._COLLECTIVES:
+        for n in (0, 1, 2, 4, 16, 512):
+            assert p._ring_factor(op, n) == r._ring_factor(op, n)
+
+
+@pytest.mark.parametrize("arch", [
+    "mamba2-130m", "musicgen-large", "kimi-k2-1t-a32b", "olmoe-1b-7b",
+    "phi3-medium-14b", "llama3.2-3b", "qwen1.5-4b", "qwen3-8b",
+    "recurrentgemma-2b", "phi-3-vision-4.2b"])
+def test_shapes_copies_are_the_references(arch):
+    """SHAPES, Cell, shape_applicable and tokens_per_step over every shape,
+    on the full config and the smoke config."""
+    from repro.configs import get_config as r_config, smoke_config as r_smoke
+    from repro.launch import shapes as r
+    from repro_torch.configs import get_config as p_config, smoke_config as p_smoke
+    from repro_torch.launch import shapes as p
+
+    assert p.SHAPES == r.SHAPES
+    for (rc, pc) in ((r_config(arch), p_config(arch)), (r_smoke(arch), p_smoke(arch))):
+        for shape in r.SHAPES:
+            assert p.Cell(arch, shape).kind == r.Cell(arch, shape).kind
+            assert p.shape_applicable(pc, shape) == r.shape_applicable(rc, shape)
+            assert p.tokens_per_step(pc, shape) == r.tokens_per_step(rc, shape)
