@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Twelve
+``nvcc``; exits non-zero, printing no result, without them.  Thirteen
 phases, none of which is caught and swallowed:
 
 1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
@@ -158,6 +158,25 @@ phases, none of which is caught and swallowed:
    each roofline bound must not exceed the measured device ms; the
    predicted peak is printed beside the measured one (the step's
    arguments and what it allocates), and flagged when more than 25% off.
+12. **The SNN over a mesh of ranks** (``shard(mesh=)`` and
+   ``shard(assignment=)`` over ``torch.distributed``, one process a rank).
+   (a) A world of one NCCL rank: phase 8's 100k scaffold at batch 8 under
+   ``shard(mesh=make_host_mesh())`` (1 x 1) through ``run_device``,
+   ``run_batched`` and ``run_temporal``, bitwise equal to phase 8's
+   unsharded replies, with no collective on the size-1 groups, and timed
+   in turns with the unsharded launch.  (b) Four gloo ranks in spawned
+   processes, every one on the one card (NCCL refuses two ranks on one
+   card), each collective through a host buffer: the 10k scaffold at batch
+   8 over meshes 4 x 1 and 2 x 2 through ``run_device`` and
+   ``run_batched`` (its ``run_temporal`` is refused, as on one card), the
+   gesture network's ``run_temporal`` over the same meshes (its passes and
+   residuals the one-card run's), and ``tests/test_tiling.py``'s
+   ``skip-and-loop`` fixture placed round-robin over four devices through
+   ``shard(assignment=)`` (9 tiles, 36 projections, 28 halo edges): every
+   rank's trains bitwise equal to the one-card run, the halo elements sent
+   the plan's rows, each rank's K1-K4 launches, collectives and elements
+   printed, and every split K2/K3 operand slab held bitwise against its
+   plain version.
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -1258,12 +1277,15 @@ def old_project(wdm, col_source, col_delay, x_hist, t):
 
 
 def old_scan_network(plan, metas, forms, params, states, spikes,
-                     valid_steps=None):
+                     valid_steps=None, complete=None, halo=None):
     """The loop the population step replaced (the executor's before it):
     each serial edge's whole projection (update, roll into the ring, copy
     out and zero the current slot), the currents summed with torch adds,
     the int8 carry cast to f32, the standalone K1, the casts back, the copy
-    into the output train, and an int8 feedback ring written each step."""
+    into the output train, and an int8 feedback ring written each step.
+    One card only: no operand is split and no placement spans ranks."""
+    require(halo is None and not any(complete or ()),
+            "the old population route runs on one card")
     from repro_torch.core.runtime import executor
     from repro_torch.core.runtime.parallel_runtime import parallel_project
     from repro_torch.core.runtime.serial_runtime import (
@@ -2227,13 +2249,14 @@ def scaffold_phase(card):
     """Phase 8: the cerebellum scaffold at 10k and 100k neurons through
     every path, the profiler (10k) and the engine (100k), held to the port
     on the CPU and to run_graph_reference; then timed.  Returns the launch
-    counts of its paths and the ``scaffold`` JSON object."""
+    counts of its paths, the ``scaffold`` JSON object, and per size the
+    network, report, batch-8 stimulus and replies that phase 12 reruns."""
     from repro_torch.scaffold import build_cerebellum
 
     t_phase = time.perf_counter()
     total = {k: 0 for k in REPLACES}
     out = {"card": card, "sizes": {}, "kernels": [], "event": []}
-    built = {}
+    built, kept = {}, {}
     for n in SCAFFOLD_SIZES:
         t0 = time.perf_counter()
         sc = build_cerebellum(n, seed=SCAFFOLD_SEED)
@@ -2248,11 +2271,11 @@ def scaffold_phase(card):
         oracles = {n: scaffold_oracle(pool, n, b[0].network, b[2], b[3])
                    for n, b in built.items()}
         for n in SCAFFOLD_SIZES:
-            scaffold_size(n, built.pop(n), compiles.pop(n), oracles.pop(n),
-                          card, total, out)
+            kept[n] = scaffold_size(n, built.pop(n), compiles.pop(n),
+                                    oracles.pop(n), card, total, out)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"scaffold: phase took {out['seconds']:.1f} s")
-    return total, out
+    return total, out, kept
 
 
 def scaffold_size(n, built, compiled, oracle, card, total, out):
@@ -2291,6 +2314,8 @@ def scaffold_size(n, built, compiled, oracle, card, total, out):
     out["sizes"][str(n)] = info
     release_network_executable(rep)
     torch.cuda.empty_cache()
+    return sc.network, rep, x8, {k: served[k] for k in (
+        "run_device", "run_batched", "run_temporal") if k in served}
 
 
 # -- 7. serve mamba2-130m ----------------------------------------------------------
@@ -3200,6 +3225,353 @@ def dryrun_phase(card, conn, proc, measured):
     return rows
 
 
+# -- 12. the SNN over a mesh of ranks ------------------------------------------------
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+#: phase 12 (b): four ranks, every one on the one card, and their meshes
+#: (data, model)
+MESH_RANKS, MESH_SHAPES = 4, ((4, 1), (2, 2))
+MESH_TIMEOUT_S = 600
+#: tests/test_tiling.py's "skip-and-loop" geometry, its seed and tiling
+#: budget: the fixture of ROADMAP.md §3, placed round-robin on a 4 x 4 grid
+#: over four devices (9 tiles, 36 projections, 28 halo edges, 168 bits a
+#: step); 64 steps of 8 lanes at rate 0.3
+SKIP_AND_LOOP = (
+    [("in", 15), ("h1", 14), ("h2", 12), ("out", 7)],
+    [("in", "h1", 0.4, 2), ("h1", "h2", 0.4, 2), ("in", "h2", 0.3, 1),
+     ("h2", "h2", 0.3, 2), ("h2", "out", 0.5, 2), ("out", "h1", 0.3, 1)],
+    1808, 5,
+)
+PLACED_STEPS = 64
+
+
+def skip_and_loop():
+    """The placed fixture: tiled network, report (parallel and serial
+    projections alternate), assignment over four devices and spikes."""
+    from repro_torch.core import (
+        CompileReport, LIFParams, Population, SNNNetwork, SwitchingCompiler,
+        random_projection,
+    )
+    from repro_torch.placement import (
+        CoreGrid, build_device_assignment, round_robin_place, tile_network,
+    )
+
+    pop_spec, proj_spec, seed, budget = SKIP_AND_LOOP
+    rng = np.random.default_rng(seed)
+    pops = {n: Population(n, s) for n, s in pop_spec}
+    projs = []
+    for pre, post, density, delay_range in proj_spec:
+        p = random_projection(
+            pops[pre], pops[post], density, delay_range,
+            seed=int(rng.integers(0, 2**31)),
+            delay_granularity=rng.choice(["source", "synapse"]),
+        )
+        p.lif = LIFParams(alpha=0.5, v_th=64.0)
+        projs.append(p)
+    net = SNNNetwork(populations=list(pops.values()), projections=projs,
+                     name="skip-and-loop")
+    tiled = tile_network(net, max_neurons=budget)
+    grid = CoreGrid(rows=4, cols=4)
+    da = build_device_assignment(round_robin_place(tiled, grid), tiled, grid,
+                                 n_devices=MESH_RANKS)
+    tn = tiled.network
+    report = CompileReport(layers=[
+        SwitchingCompiler("serial" if i % 2 else "parallel").compile_layer(l)
+        for i, l in enumerate(tn.layers)
+    ])
+    spikes = (rng.random((PLACED_STEPS, MICRO_BATCH, net.n_input)) < 0.3
+              ).astype(np.float32)
+    return tn, report, da, spikes
+
+
+def mesh_paths(exe, x, vs=None):
+    """Phase 12's launch paths of one executable."""
+    return {"run_device": lambda: exe.run_device(x),
+            "run_batched": lambda: exe.run_batched(x),
+            "run_temporal": lambda: exe.run_temporal(x, valid_steps=vs)}
+
+
+def host_arrays(outs):
+    return [z.cpu().numpy() for z in outs]
+
+
+def mesh_one_rank(card, kept):
+    """Phase 12 (a): the 100k scaffold under a 1 x 1 mesh on a world of one
+    NCCL rank, against phase 8's unsharded replies; timed in turns with
+    the unsharded launch; no collective may run on the size-1 groups."""
+    import torch.distributed as dist
+
+    from repro_torch.core.runtime import (
+        NetworkExecutable, network_executable, release_network_executable,
+    )
+    from repro_torch.distributed import exchange
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    n = max(SCAFFOLD_SIZES)
+    net, rep, x8, want = kept[n]
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    store = MESH_DIR / "store_one"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    counts = {k: 0 for k in REPLACES}
+    try:
+        mesh = make_host_mesh()
+        require(tuple(mesh.shape) == (1, 1), f"host mesh {tuple(mesh.shape)}")
+        base = network_executable(net, rep, device=CARD)
+        exe = NetworkExecutable.build(net, rep, device=CARD).shard(mesh=mesh)
+        xs = torch.as_tensor(x8, device=CARD)
+        plain, sharded = mesh_paths(base, xs), mesh_paths(exe, xs)
+        for path, launch in sharded.items():
+            if path not in want:
+                print(f"mesh one rank [{card}]: {n} {path} skipped: phase 8 "
+                      "refused it")
+                continue
+            reset_launch_counts()
+            exchange.reset_exchange_counts()
+            outs = launch()
+            torch.cuda.synchronize()
+            c, ex = launch_counts(), exchange.exchange_counts()
+            for k in counts:
+                counts[k] += c[k]
+            require(bool(exe.last_check), f"mesh one rank {path}: last_check")
+            got = host_arrays(outs)
+            require(all(np.array_equal(a, b) for a, b in zip(got, want[path])),
+                    f"mesh one rank {n} {path}: differs from phase 8's "
+                    "unsharded replies")
+            calls = sum(v["calls"] for v in ex.values())
+            require(calls == 0, f"mesh one rank {path}: {calls} collectives on "
+                    "size-1 groups")
+            new, _, old, _ = in_turns(launch, plain[path], reps=5)
+            steps = xs.shape[0]
+            print(f"mesh one rank [{card}]: {n} {path} under make_host_mesh() "
+                  f"(1 x 1, {exchange.transport(None)}): bitwise equal to phase "
+                  f"8's unsharded replies; launches "
+                  f"{ {k: v for k, v in c.items() if v} }; collectives a step "
+                  f"{calls / steps:g}; host {new / steps * 1e3:.1f} us a step "
+                  f"sharded against {old / steps * 1e3:.1f} unsharded (in turns, "
+                  f"{new:.3f} against {old:.3f} ms a launch)")
+        release_network_executable(rep)
+        del base, exe
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def mesh_rank(rank, world, case_path, out_dir):
+    """One rank of phase 12 (b): gloo over a FileStore, on the one card."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core.runtime import NetworkExecutable
+    from repro_torch.distributed import exchange, snn_mesh
+    from repro_torch.distributed.sharding import is_sharded
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
+    from repro_torch.kernels.spike_wdm_matmul import (
+        spike_wdm_project, spike_wdm_project_ref,
+    )
+
+    if CARD == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=MESH_TIMEOUT_S // 2))
+    with open(case_path, "rb") as fh:
+        case = pickle.load(fh)
+    res = {"rank": rank, "runs": [], "operands": []}
+
+    def run(tag, exe, paths, want, steps):
+        for path, launch in paths.items():
+            reset_launch_counts()
+            exchange.reset_exchange_counts()
+            outs = launch()
+            torch.cuda.synchronize()
+            ex = exchange.exchange_counts()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            got = host_arrays(outs)
+            # a second launch, its operands built: host clock to a sync
+            t0 = time.perf_counter()
+            launch()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res["runs"].append({
+                "tag": tag, "path": path, "ms": ms, "steps": steps,
+                "equal": bool(exe.last_check) and len(got) == len(want[path])
+                and all(np.array_equal(a, b) for a, b in zip(got, want[path])),
+                "launches": launches,
+                "exchange": {k: v for k, v in ex.items() if v["calls"]},
+                "halo_per_step": exe.halo_elements_per_step(MICRO_BATCH),
+                "transport": exchange.transport(None, exe.device),
+            })
+
+    net, rep, x8, want = case["scaffold"]
+    gnet, grep, xg, vg, gwant, grecord = case["gesture"]
+    for data, model in MESH_SHAPES:
+        mesh = snn_mesh(model_axis=model)
+        tag = f"{data} x {model}"
+        exe = NetworkExecutable.build(net, rep, device=CARD).shard(mesh=mesh)
+        xs = torch.as_tensor(x8, device=CARD)
+        paths = mesh_paths(exe, xs)
+        paths.pop("run_temporal")            # refused at 10k, as on one card
+        run(f"scaffold {tag}", exe, paths, want, xs.shape[0])
+        # every split K2/K3 operand this rank holds, at its own shape,
+        # against the plain version on the card (not counted: after the runs)
+        gen = torch.Generator(device=CARD).manual_seed(rank)
+        for (i, kind), specs in sorted(exe._specs.items()):
+            if not is_sharded(specs[0], mesh):
+                continue
+            m = exe.metas[i]
+            if kind == "event" and m.paradigm == "parallel":
+                wdm, src, dly = exe.params[i]
+                ring = (torch.rand((xs.shape[1] // data, m.ring_depth, m.n_source),
+                                   device=CARD, generator=gen) < 0.2
+                        ).to(torch.int8)
+                ok = all(torch.equal(spike_wdm_project(wdm, src, dly, ring, t),
+                                     spike_wdm_project_ref(wdm, src, dly, ring, t))
+                         for t in range(m.ring_depth + 2))
+                res["operands"].append(("spike_wdm_project", tag, i,
+                                        tuple(wdm.shape), ok))
+            elif kind == "sparse":
+                val, idx = exe._sparse[i]
+                x = (torch.rand((xs.shape[1] // data, m.n_source), device=CARD,
+                                generator=gen) < 0.2).float().t()
+                ok = torch.equal(sparse_gather(val, idx, x),
+                                 sparse_gather_ref(val, idx, x))
+                res["operands"].append(("sparse_gather", tag, i,
+                                        tuple(val.shape), ok))
+        gexe = NetworkExecutable.build(gnet, grep, device=CARD).shard(mesh=mesh)
+        gx, gv = torch.as_tensor(xg, device=CARD), torch.as_tensor(vg, device=CARD)
+        run(f"gesture {tag}", gexe, {"run_temporal": mesh_paths(gexe, gx, gv)[
+            "run_temporal"]}, gwant, gx.shape[0])
+        res["runs"][-1]["record"] = grep.temporal[(MICRO_BATCH, gx.shape[0])
+                                                  ].as_dict() == grecord
+    tn, trep, da, spikes, twant = case["placed"]
+    exe = NetworkExecutable.build(tn, trep, device=CARD).shard(assignment=da)
+    xs = torch.as_tensor(spikes, device=CARD)
+    run("skip-and-loop assignment", exe, mesh_paths(exe, xs), twant, xs.shape[0])
+    res["owned"] = [i for i, p in enumerate(exe.params) if p is not None]
+    with open(out_dir / f"rank{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_four_ranks(card, kept, gesture):
+    """Phase 12 (b): four gloo ranks on the one card, every operand of a
+    rank on ``cuda:0`` and each collective through a host buffer: the 10k
+    scaffold over meshes 4 x 1 and 2 x 2 (run_device, run_batched), the
+    gesture network's run_temporal over the same meshes, and the placed
+    skip-and-loop fixture through shard(assignment=); every rank's trains
+    against the one-card run."""
+    import pickle
+
+    from repro_torch.core.runtime import (
+        network_executable, release_network_executable,
+    )
+
+    t0 = time.perf_counter()
+    n = min(SCAFFOLD_SIZES)
+    net, rep, x8, served = kept[n]
+    gnet, grep, (xg, vg) = gesture
+    gexe = network_executable(gnet, grep, device=CARD)
+    gwant = {"run_temporal": host_arrays(gexe.run_temporal(xg, valid_steps=vg))}
+    grecord = grep.temporal[(MICRO_BATCH, xg.shape[0])].as_dict()
+    tn, trep, da, spikes = skip_and_loop()
+    summary = da.summary()
+    require((len(da.tile_device), len(da.proj_device), len(da.halo),
+             da.halo_bits_per_step()) == (9, 36, 28, 168),
+            f"skip-and-loop plan {summary}")
+    texe = network_executable(tn, trep, device=CARD)
+    twant = {k: host_arrays(f()) for k, f in mesh_paths(texe, torch.as_tensor(
+        spikes, device=CARD)).items()}
+    for r in (rep, grep, trep):
+        release_network_executable(r)
+    out_dir = MESH_DIR / "four"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    case_path = out_dir / "case.pkl"
+    with open(case_path, "wb") as fh:
+        pickle.dump({"scaffold": (net, rep, x8, served),
+                     "gesture": (gnet, grep, xg, vg, gwant, grecord),
+                     "placed": (tn, trep, da, spikes, twant)}, fh)
+    print(f"mesh four ranks [{card}]: case written in "
+          f"{time.perf_counter() - t0:.1f} s; skip-and-loop plan {summary}")
+    ctx = get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, MESH_RANKS, case_path, out_dir))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * MESH_RANKS, f"mesh four ranks: exit codes {codes}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(out_dir / f"rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    by_run = {}
+    for res in ranks:
+        for row in res["runs"]:
+            by_run.setdefault((row["tag"], row["path"]), []).append(row)
+    pairs = {(h.pre, h.dst_device): h.n_bits for h in da.halo}
+    for (tag, path), rows in by_run.items():
+        require(all(r["equal"] for r in rows),
+                f"mesh four ranks {tag} {path}: ranks {[r['equal'] for r in rows]} "
+                "equal to the one-card run")
+        if "record" in rows[0]:
+            require(all(r["record"] for r in rows),
+                    f"mesh four ranks {tag}: run_temporal's record differs")
+        for r in rows:
+            l = r["launches"]
+            require(l.get("lif_step", 0) > 0 or path == "run_temporal",
+                    f"mesh four ranks {tag} {path}: no lif_step launched")
+        if tag.startswith("skip-and-loop"):
+            sent = sum(r["exchange"].get("send", {}).get("elements", 0)
+                       for r in rows)
+            per_step = MICRO_BATCH * sum(pairs.values())
+            require(sent == PLACED_STEPS * per_step
+                    and all(r["halo_per_step"] == per_step for r in rows),
+                    f"mesh four ranks {tag} {path}: {sent} halo elements sent, "
+                    f"the plan's {per_step} a step")
+        print(f"mesh four ranks [{card}]: {tag} {path}: every rank bitwise equal "
+              f"to the one-card run ({rows[0]['transport']}); per rank: "
+              + "; ".join(
+                  f"r{k} {r['ms']:.1f} ms ({r['ms'] / r['steps'] * 1e3:.0f} us a "
+                  f"step), launches {r['launches']}, collectives "
+                  f"{ {op: (v['calls'], v['elements']) for op, v in r['exchange'].items()} }"
+                  for k, r in enumerate(rows)))
+    ops = [tuple(o) for res in ranks for o in res["operands"]]
+    require(ops and all(o[-1] for o in ops),
+            f"mesh four ranks: sharded operands that differ from their plain "
+            f"versions: {[o for o in ops if not o[-1]]}")
+    shapes = sorted({(o[0], tuple(o[3])) for o in ops})
+    print(f"mesh four ranks [{card}]: {len(ops)} sharded K2/K3 operand slabs "
+          f"bitwise equal to their plain versions, shapes {shapes}; skip-and-loop "
+          f"halo {MICRO_BATCH * sum(pairs.values())} elements a step "
+          f"({len(pairs)} (pre, dst_device) rows of the plan's {len(da.halo)} "
+          f"edges); projections by rank {[len(r['owned']) for r in ranks]}; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def mesh_phase(card, kept, gesture):
+    """Phase 12: (a) one NCCL rank at full width, (b) four gloo ranks on the
+    one card.  Returns the launch counts of (a)'s main path."""
+    counts = mesh_one_rank(card, kept)
+    mesh_four_ranks(card, kept, gesture)
+    return counts
+
+
 # -- kernel timings --------------------------------------------------------------
 def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
                 extra_fixed_points):
@@ -3770,7 +4142,7 @@ def main() -> int:
     lap("8. the cerebellum scaffold")
     # 8. the cerebellum scaffold at 10k and 100k neurons, its paths' counts
     # read around each path alone
-    s_counts, s_json = scaffold_phase(card)
+    s_counts, s_json, s_kept = scaffold_phase(card)
 
     lap("9. serve the attention, recurrent and MoE archs")
     # 9. the other nine archs: smoke configs, recurrentgemma-2b at full
@@ -3823,6 +4195,13 @@ def main() -> int:
     lap("11. the dry run")
     # 11. the dry run: the sweep's records, and the measured cells' bounds
     dryrun_phase(card, dry_conn, dry_proc, measured)
+
+    lap("12. the SNN over a mesh of ranks")
+    # 12. (a) the 100k scaffold under a 1 x 1 mesh on one NCCL rank, its
+    # counts read around its paths alone; (b) four gloo ranks on the card
+    m_counts = mesh_phase(card, s_kept, (net, reports["classifier"], batches[1]))
+    for row in rows:
+        row["launches"] += m_counts.get(row["name"], 0)
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

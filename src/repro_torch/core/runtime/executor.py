@@ -48,8 +48,9 @@ all-0/1 output self-check stays on the device (:attr:`last_check`).
 full micro-batches: the reference vmaps width-1 scans over the request
 axis, and here the batch axis is already written out, so it runs the same
 loop as :meth:`~NetworkExecutable.run_device` and records its forms under
-``("vmap", B)``.  :meth:`NetworkExecutable.shard` places the operands; on
-one card it is the identity.
+``("vmap", B)``.  :meth:`NetworkExecutable.shard` places the operands over
+the ranks of a ``torch.distributed`` process group, by a mesh's rules or
+by a placement's assignment; with one process it is the identity.
 
 :meth:`NetworkExecutable.run_temporal` is the second launch path, the
 temporal-parallel paradigm (:mod:`.temporal_runtime`): feed-forward
@@ -61,12 +62,15 @@ fixed-point pass; nothing else on that path syncs.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from functools import partial
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...device import resolve_device
+from ...distributed import exchange
 from ...distributed import sharding as shardlib
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
@@ -227,6 +231,63 @@ def _layer_params(exe) -> Tuple[torch.Tensor, ...]:
     return (exe.wdm_stack, exe.col_source, exe.col_delay)
 
 
+def _param_axes(meta: LayerMeta, form: str) -> Tuple[Tuple, ...]:
+    """Logical-axis names per operand tensor (for ``snn_rules`` placement)."""
+    if meta.paradigm == "serial":
+        if form == "dense":
+            return ((None, None, "neurons"),)      # (d_slots, S, T)
+        if form == "sparse":
+            # ELL rows are (delay_slot, target) pairs — the target-neuron
+            # axis in disguise
+            return (("neurons", None), ("neurons", None))  # ell_val, ell_idx
+        return (("rows",),) * 4                    # weight/delay/src/tgt
+    # parallel: wdm_stack (n_target, C), col_source (C,), col_delay (C,)
+    return (("neurons", "cols"), ("cols",), ("cols",))
+
+
+class _Halo:
+    """One launch's view of a placement over several ranks.
+
+    ``owner[p]`` is the rank that updates population ``p`` (its tile's
+    device; every projection into a tile runs there) and ``dsts[p]`` the
+    other ranks that read its spikes, once a ``(pre, dst_device)`` pair of
+    the plan's halo.  A rank computes only with what it owns or received:
+    a population it neither updates nor receives reads as ``None``.
+    """
+
+    def __init__(self, owner, dsts, rank: int, device):
+        self.owner, self.dsts, self.rank, self.device = owner, dsts, rank, device
+        self.have = {p for p, o in enumerate(owner) if o == rank}
+        #: populations whose whole trains were already exchanged
+        self.whole = set()
+
+    def owns(self, p: int) -> bool:
+        return self.owner[p] == self.rank
+
+    def exchange(self, p: int, x, shape, out=None):
+        """``p``'s spikes ``x`` (a step's row or a whole train) from its
+        owner to the ranks that read them; what this rank then holds."""
+        dsts = self.dsts.get(p, ())
+        if self.owns(p):
+            for d in dsts:
+                exchange.send(x, d)
+            return x
+        if self.rank not in dsts:
+            return None
+        buf = out if out is not None else torch.empty(
+            shape, dtype=torch.float32, device=self.device)
+        exchange.recv(buf, self.owner[p])
+        self.have.add(p)
+        return buf
+
+    def input_row(self, p: int, row):
+        """An input population's row: exchanged each step, unless its
+        whole train was."""
+        if p in self.whole:
+            return row if p in self.have else None
+        return self.exchange(p, row, row.shape)
+
+
 def _init_graph_carry(
     plan: GraphPlan, metas: Tuple[LayerMeta, ...], batch: int, device
 ):
@@ -277,6 +338,8 @@ def _scan_network(
     states,                       # _init_graph_carry output (updated in place)
     spikes: torch.Tensor,         # (T, B, n_input) f32
     valid_steps: torch.Tensor | None = None,   # (B,) true length per request
+    complete=None,                # per proj: a slab's completion, or None
+    halo: _Halo | None = None,    # a placement over several ranks
 ):
     """Run the graph over all T steps; returns per-population trains.
 
@@ -288,8 +351,14 @@ def _scan_network(
     forces their emitted spikes to exact zeros, and because the loop is
     causal and batch slots are independent, the first valid_steps[b]
     outputs are bit-identical to running that request alone.
+
+    Over a mesh, ``complete[ei]`` turns the projection's result from this
+    rank's operand slab into the whole one (:mod:`...distributed.exchange`);
+    under a placement, ``halo`` says which populations this rank updates,
+    and each row goes to its readers right after it fires.
     """
     T, batch = spikes.shape[0], spikes.shape[1]
+    complete = complete or [None] * len(metas)
     live = _live_mask(spikes, valid_steps)
     if live is not None:
         spikes = spikes * live
@@ -318,30 +387,36 @@ def _scan_network(
         x_t = spikes[t]
         pop_out = [None] * len(plan.pop_sizes)
         for p, (a, b) in zip(plan.input_pops, plan.input_slices):
-            pop_out[p] = x_t if full_input else x_t[:, a:b]
+            row = x_t if full_input else x_t[:, a:b]
+            pop_out[p] = row if halo is None else halo.input_row(p, row)
         for p in plan.update_order:
             k = vz_slot[p]
-            edges = []
-            for ei in plan.in_edges[p]:
-                meta = metas[ei]
-                src = plan.proj_src[ei]
-                x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
-                if meta.paradigm == "serial":
-                    upd, shift = _SERIAL_UPDATES[forms[ei]](
-                        *params[ei], x, t,
-                        delay_range=meta.delay_range, n_target=meta.n_target,
-                    )
-                    edges.append(RingEdge(proj_states[ei], upd, shift))
-                else:
-                    _, i_e = parallel_project(
-                        *params[ei], proj_states[ei], x, t
-                    )
-                    edges.append(CurrentEdge(i_e))
-            # delivery, sum, fire, int8 carry and f32 spike row: one launch
-            pop_out[p] = lif_step(
-                edges, pop_v[k], pop_z[k], outs[k][t], t,
-                alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
-            )
+            if halo is None or halo.owns(p):
+                edges = []
+                for ei in plan.in_edges[p]:
+                    meta = metas[ei]
+                    src = plan.proj_src[ei]
+                    x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
+                    if meta.paradigm == "serial":
+                        upd, shift = _SERIAL_UPDATES[forms[ei]](
+                            *params[ei], x, t, delay_range=meta.delay_range,
+                            n_target=meta.n_target, complete=complete[ei],
+                        )
+                        edges.append(RingEdge(proj_states[ei], upd, shift))
+                    else:
+                        _, i_e = parallel_project(
+                            *params[ei], proj_states[ei], x, t,
+                            complete=complete[ei],
+                        )
+                        edges.append(CurrentEdge(i_e))
+                # delivery, sum, fire, int8 carry and f32 spike row: one
+                # launch
+                pop_out[p] = lif_step(
+                    edges, pop_v[k], pop_z[k], outs[k][t], t,
+                    alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
+                )
+            if halo is not None:
+                pop_out[p] = halo.exchange(p, pop_out[p], None, outs[k][t])
         prev_out = pop_out
     if live is not None:
         outs = [z * live for z in outs]
@@ -423,6 +498,8 @@ def _temporal_network(
     states,                      # block carry (updated in place); () if none
     spikes: torch.Tensor,        # (T, B, n_input) f32
     valid_steps: torch.Tensor | None = None,
+    complete=None,               # per proj: a slab's completion, or None
+    halo: _Halo | None = None,   # a placement over several ranks
 ):
     """Whole-train executor: no loop over time for feed-forward segments.
 
@@ -432,56 +509,100 @@ def _temporal_network(
     the per-population outputs are masked once at the end — so the live
     prefix is bit-identical to a solo run and padded steps emit exact
     zeros.  Returns the per-population trains (``update_order``) and
-    ``{pop: (iterations, residual)}`` for the whole-train populations.
+    ``{pop: (iterations, residual)}`` for the whole-train populations this
+    rank updated.  ``complete`` and ``halo`` are :func:`_scan_network`'s;
+    under a placement each whole train goes to its readers once, and the
+    step-serial block exchanges its rows step by step.
     """
     live = _live_mask(spikes, valid_steps)
     if live is not None:
         spikes = spikes * live
+    complete = complete or [None] * len(metas)
+    steps, batch = spikes.shape[0], spikes.shape[1]
 
     pop_out = [None] * len(plan.pop_sizes)
     for p, (a, b) in zip(plan.input_pops, plan.input_slices):
-        pop_out[p] = (
-            spikes if (a, b) == (0, spikes.shape[2]) else spikes[:, :, a:b]
-        )
+        x = spikes if (a, b) == (0, spikes.shape[2]) else spikes[:, :, a:b]
+        pop_out[p] = x if halo is None else halo.exchange(p, x, x.shape)
+    if halo is not None:
+        halo.whole.update(plan.input_pops)
     aux = {}
 
     def whole_train(p):
-        i_full = None                                    # (T, B, n) current
-        for ei in plan.in_edges[p]:
-            meta = metas[ei]
-            x = pop_out[plan.proj_src[ei]]
-            if forms[ei] == "temporal_sparse":
-                i_e = temporal_project_sparse(
-                    *params[ei], x, delay_range=meta.delay_range,
-                    n_target=meta.n_target,
-                )
-            else:
-                i_e = temporal_project_dense(params[ei][0], x)
-            i_full = i_e if i_full is None else i_full + i_e
-        z, iters, residual = temporal_lif(
-            i_full, alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
-            mode=tplan.modes[p], max_iters=max_iters,
-        )
-        pop_out[p] = z
-        aux[p] = (iters, residual)
+        if halo is None or halo.owns(p):
+            i_full = None                                # (T, B, n) current
+            for ei in plan.in_edges[p]:
+                meta = metas[ei]
+                x = pop_out[plan.proj_src[ei]]
+                if forms[ei] == "temporal_sparse":
+                    i_e = temporal_project_sparse(
+                        *params[ei], x, delay_range=meta.delay_range,
+                        n_target=meta.n_target, complete=complete[ei],
+                    )
+                else:
+                    i_e = temporal_project_dense(
+                        params[ei][0], x, complete=complete[ei])
+                i_full = i_e if i_full is None else i_full + i_e
+            z, iters, residual = temporal_lif(
+                i_full, alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
+                mode=tplan.modes[p], max_iters=max_iters,
+            )
+            pop_out[p] = z
+            aux[p] = (iters, residual)
+        if halo is not None:
+            pop_out[p] = halo.exchange(
+                p, pop_out[p], (steps, batch, plan.pop_sizes[p]))
+            halo.whole.add(p)
 
     for p in tplan.pre:
         whole_train(p)
     if tplan.block:
-        aug = [pop_out[s] for s in tplan.ext_sources]
+        aug = [
+            pop_out[s] if pop_out[s] is not None else torch.zeros(
+                (steps, batch, plan.pop_sizes[s]), device=spikes.device)
+            for s in tplan.ext_sources
+        ]
         aug = aug[0] if len(aug) == 1 else torch.cat(aug, dim=2)
         block_outs = _scan_network(
             tplan.sub_plan, metas, forms, params, states, aug, None,
+            complete, halo,
         )
         for p, z in zip(tplan.block, block_outs):
-            pop_out[p] = z
+            pop_out[p] = z if halo is None or p in halo.have else None
+        if halo is not None:
+            halo.whole.update(tplan.block)
     for p in tplan.post:
         whole_train(p)
 
     outs = [pop_out[p] for p in plan.update_order]
     if live is not None:
-        outs = [z * live for z in outs]
+        outs = [None if z is None else z * live for z in outs]
     return outs, aux
+
+
+@dataclasses.dataclass
+class _MeshPlacement:
+    """``shard(mesh=)``'s mesh, rules and this rank's coordinate."""
+
+    mesh: object
+    rules: dict
+    coord: dict
+
+    def spec(self, axes, shape):
+        return shardlib.spec_for_shape(axes, self.rules, shape, self.mesh)
+
+    def group(self, part):
+        """The process group of a spec entry that splits over more than
+        one rank; None for an entry that splits nothing."""
+        if part is None:
+            return None
+        if not isinstance(part, str):
+            if len(part) != 1:
+                raise ValueError(
+                    f"an operand split over several mesh axes {part}")
+            part = part[0]
+        group = self.mesh.get_group(part)
+        return group if exchange.group_size(group) > 1 else None
 
 
 class NetworkExecutable:
@@ -518,6 +639,20 @@ class NetworkExecutable:
         self._temporal = {}  # layer index -> parallel WDM as (d_slots, S, T)
         self._nonneg = {}    # layer index -> all weights >= 0
         self._tplan = None   # cached TemporalPlan
+        #: The whole operands, which the form operands are built from: the
+        #: same tensors as ``params`` until ``shard(mesh=)`` keeps a host
+        #: copy here and this rank's blocks in ``params``.
+        self._whole = self.params
+        #: Declared population names (tile names once a network is tiled),
+        #: which a placement's assignment is keyed by.
+        self.pop_names: Tuple[str, ...] | None = None
+        #: ``shard(mesh=)``'s placement (None: every operand whole here)
+        #: and the spec each placed operand got, ``(layer, kind) ->
+        #: specs``; ``shard(assignment=)``'s per-population owners and
+        #: readers over several ranks
+        self._mesh_pl = None
+        self._specs: Dict[Tuple[int, str], Tuple] = {}
+        self._assigned = None
         #: The launch entries run so far, keyed like the reference's jit
         #: cache: ``(path, forms, max_iters)`` (see :meth:`jit_entries`).
         self._entries = set()
@@ -567,10 +702,12 @@ class NetworkExecutable:
                 )
             )
             params.append(_layer_params(exe))
-        return cls(
+        exe = cls(
             tuple(metas), params, name=getattr(net, "name", "snn"),
             plan=plan, report=report, device=dev,
         )
+        exe.pop_names = tuple(p.name for p in net.populations)
+        return exe
 
     @property
     def n_input(self) -> int:
@@ -619,7 +756,7 @@ class NetworkExecutable:
         return tuple(forms)
 
     def _serial_exe(self, i: int) -> SerialExecutable:
-        meta, p = self.metas[i], self.params[i]
+        meta, p = self.metas[i], self._whole[i]
         return SerialExecutable(
             n_source=meta.n_source, n_target=meta.n_target,
             delay_range=meta.delay_range,
@@ -631,9 +768,8 @@ class NetworkExecutable:
         """The layer's dense-form operand, built once and cached."""
         w = self._dense.get(i)
         if w is None:
-            w = torch.as_tensor(
-                dense_serial_weights(self._serial_exe(i)), device=self.device
-            )
+            (w,) = self._place(i, "dense", torch.as_tensor(
+                dense_serial_weights(self._serial_exe(i))))
             self._dense[i] = w
         return (w,)
 
@@ -642,10 +778,8 @@ class NetworkExecutable:
         ell = self._sparse.get(i)
         if ell is None:
             val, idx = sparse_serial_operands(self._serial_exe(i))
-            ell = (
-                torch.as_tensor(val, device=self.device),
-                torch.as_tensor(idx, device=self.device),
-            )
+            ell = self._place(
+                i, "sparse", torch.as_tensor(val), torch.as_tensor(idx))
             self._sparse[i] = ell
         return ell
 
@@ -653,7 +787,7 @@ class NetworkExecutable:
     def _weights_nonneg(self, i: int) -> bool:
         v = self._nonneg.get(i)
         if v is None:
-            w = self.params[i][0].cpu().numpy()   # row_weight | wdm_stack
+            w = self._whole[i][0].cpu().numpy()   # row_weight | wdm_stack
             v = bool(w.size == 0 or w.min() >= 0)
             self._nonneg[i] = v
         return v
@@ -743,13 +877,13 @@ class NetworkExecutable:
             return self._dense_param(i)
         w = self._temporal.get(i)
         if w is None:
-            wdm, col_src, col_dly = (a.cpu().numpy() for a in self.params[i])
+            wdm, col_src, col_dly = (a.cpu().numpy() for a in self._whole[i])
             w_np = np.zeros(
                 (meta.delay_range + 1, meta.n_source, meta.n_target),
                 np.float32,
             )
             np.add.at(w_np, (col_dly, col_src), wdm.T.astype(np.float32))
-            w = torch.as_tensor(w_np, device=self.device)
+            (w,) = self._place(i, "temporal", torch.as_tensor(w_np))
             self._temporal[i] = w
         return (w,)
 
@@ -760,8 +894,9 @@ class NetworkExecutable:
             "temporal": self._temporal_param,
             "temporal_sparse": self._sparse_param,
         }
+        # a projection another rank runs has no operands here
         return [
-            per_form[form](i) if form in per_form else p
+            per_form[form](i) if form in per_form and p is not None else p
             for i, (form, p) in enumerate(zip(forms, self.params))
         ]
 
@@ -774,8 +909,9 @@ class NetworkExecutable:
     # -- sharding ------------------------------------------------------------
     @property
     def mesh(self):
-        """The mesh params are placed on: ``None``, the one-card identity."""
-        return None
+        """The mesh the operands are placed on; ``None``: every operand is
+        whole on this rank."""
+        return None if self._mesh_pl is None else self._mesh_pl.mesh
 
     def shard(
         self,
@@ -784,48 +920,224 @@ class NetworkExecutable:
         *,
         assignment=None,
     ) -> "NetworkExecutable":
-        """Place the lowered operands by the SNN logical-axis rules.
+        """Place the lowered operands over the ranks of the process group.
 
-        On one card (:func:`~repro_torch.distributed.sharding.snn_mesh`
-        returns ``None``) this is the **identity**: no operand moves and
-        outputs are unchanged, so ``rules`` (the reference's logical-axis
-        table, :func:`~repro_torch.distributed.sharding.snn_rules` by
-        default) places nothing.  Returns ``self`` for chaining.
+        ``mesh`` (a ``("data", "model")``
+        :class:`~torch.distributed.device_mesh.DeviceMesh`,
+        :func:`~repro_torch.distributed.sharding.snn_mesh` by default)
+        places every projection's operands by the logical-axis ``rules``
+        (:func:`~repro_torch.distributed.sharding.snn_rules` by default:
+        neurons and rows on ``model``), fitted to each shape as the
+        reference fits them: this rank keeps exactly the block the
+        reference's ``NamedSharding`` puts on its device, and the launch
+        paths split the request batch over ``data``.  Each launch then
+        completes a projection's result over ``model`` only where its
+        operand really is split, and gathers the trains back over
+        ``data``: every rank returns the whole trains.  With one process
+        ``snn_mesh()`` is ``None`` and this is the **identity**.
 
         ``assignment`` switches to **placement-driven** placement: a
         :class:`repro_torch.placement.DeviceAssignment` (from
-        ``build_device_assignment`` on a placed, tiled network) pins each
-        projection's operands to the device its target tile landed on,
-        and is recorded in ``report.placement``.  A mesh, or an assignment
-        over more than one card, raises :class:`NotImplementedError`: the
-        port runs on one card.
+        ``build_device_assignment`` on a placed, tiled network).  Rank
+        ``d`` keeps the operands of the projections it assigns to device
+        ``d`` and updates the populations whose tiles it puts there; each
+        step a fired tile's spike row goes to every other device that the
+        plan's halo names, once a ``(pre, dst_device)`` pair.  Recorded in
+        ``report.placement``; with one process the put is the identity.
+        Returns ``self`` for chaining.
         """
+        whole = self._whole
         if assignment is not None:
             if len(assignment.proj_device) != len(self.metas):
                 raise ValueError(
                     f"assignment covers {len(assignment.proj_device)} "
                     f"projections; executable has {len(self.metas)}"
                 )
-            if assignment.n_devices > 1:
-                raise NotImplementedError(shardlib.MULTI_CARD_ITEM)
-            self.params = [
+            owner, dsts = self._assignment_plan(assignment)
+            nonneg = {i: self._weights_nonneg(i) for i in range(len(whole))}
+            self._reset_placement()
+            placed = [
                 tuple(shardlib.placement_put(t, dev) for t in p)
-                for dev, p in zip(assignment.proj_device, self.params)
+                for dev, p in zip(assignment.proj_device, whole)
             ]
-            # every operand built against the old placement goes
-            self._dense.clear()
-            self._sparse.clear()
-            self._temporal.clear()
-            self._nonneg.clear()
-            self._tplan = None
-            self._entries.clear()
+            # a rank keeps only the projections it runs
+            self.params = self._whole = [
+                None if any(t is None for t in p)
+                else tuple(t.to(self.device) for t in p)
+                for p in placed
+            ]
+            self._nonneg.update(nonneg)
+            if shardlib.world_size() > 1:
+                self._assigned = (owner, dsts)
             if self.report is not None:
                 self.report.placement = assignment
             return self
         mesh = shardlib.snn_mesh() if mesh is None else mesh
-        if mesh is not None:
-            raise NotImplementedError(shardlib.MULTI_CARD_ITEM)
+        if any(p is None for p in whole):
+            raise ValueError("an assignment gave this executable's operands "
+                             "to other ranks; build it anew to place it again")
+        if mesh is not None and not dist.is_initialized():
+            raise RuntimeError(
+                "shard(mesh=) places operands over the ranks of a "
+                "torch.distributed process group, and none is initialized")
+        if mesh is None:
+            if self._mesh_pl is not None:    # the whole operands come back
+                self._reset_placement()
+                self.params = self._whole = [
+                    tuple(t.to(self.device) for t in p) for p in whole]
+            return self
+        self._reset_placement()
+        rules = rules or shardlib.snn_rules()
+        shared = set(rules.get("batch", ())) & {
+            a for k in ("neurons", "rows") for a in rules.get(k, ())}
+        if shared:
+            raise ValueError(
+                f"rules put the batch and the operands on the same mesh axes "
+                f"{sorted(shared)}")
+        self._mesh_pl = _MeshPlacement(
+            mesh, rules, shardlib.mesh_coordinate(mesh))
+        # the whole operands stay on the host, the rank's blocks go to the
+        # card; form operands are built from the whole and placed the same
+        self._whole = [tuple(t.cpu() for t in p) for p in whole]
+        self.params = [
+            self._place(i, "event", *p) for i, p in enumerate(self._whole)
+        ]
         return self
+
+    def _reset_placement(self) -> None:
+        """Drop every operand and launch entry built against a placement."""
+        self._mesh_pl = None
+        self._assigned = None
+        self._specs.clear()
+        self._dense.clear()
+        self._sparse.clear()
+        self._temporal.clear()
+        self._tplan = None
+        self._entries.clear()
+
+    def _assignment_plan(self, da):
+        """Per population the rank that updates it, and the ranks its
+        spikes go to (the halo's ``(pre, dst_device)`` pairs, in order)."""
+        if self.pop_names is None:
+            raise ValueError("an assignment needs an executable built from "
+                             "its (tiled) network")
+        n = shardlib.world_size()
+        owner = tuple(da.tile_device[name] for name in self.pop_names)
+        if max(owner, default=0) >= n or max(da.proj_device, default=0) >= n:
+            raise ValueError(
+                f"the assignment uses devices up to "
+                f"{max(owner + da.proj_device)} but the world has {n} "
+                "rank(s): start one process a device")
+        for j, dev in enumerate(da.proj_device):
+            if owner[self.plan.proj_tgt[j]] != dev:
+                raise ValueError(
+                    f"projection {j} runs on device {dev}, not on its "
+                    "target tile's")
+        index = {name: p for p, name in enumerate(self.pop_names)}
+        dsts: Dict[int, Tuple[int, ...]] = {}
+        for h in da.halo:
+            p = index[h.pre]
+            if h.dst_device not in dsts.get(p, ()):
+                dsts[p] = dsts.get(p, ()) + (h.dst_device,)
+        return owner, dsts
+
+    def halo_elements_per_step(self, batch: int) -> int:
+        """Spike elements the placement's halo moves a step at ``batch``
+        (0 without a placement over several ranks)."""
+        if self._assigned is None:
+            return 0
+        _, dsts = self._assigned
+        return batch * sum(self.plan.pop_sizes[p] * len(d)
+                           for p, d in dsts.items())
+
+    def _place(self, i: int, kind: str, *tensors):
+        """This rank's blocks of layer ``i``'s ``kind`` operands (whole
+        without a mesh), on the card; records their specs."""
+        pl = self._mesh_pl
+        if pl is None:
+            return tuple(t.to(self.device) for t in tensors)
+        # the whole-train operand of a parallel layer has the serial dense
+        # form's (d_slots, S, T) layout and axes
+        axes = (_param_axes(self.metas[i], kind) if kind != "temporal"
+                else ((None, None, "neurons"),))
+        specs = tuple(pl.spec(ax, t.shape) for ax, t in zip(axes, tensors))
+        self._specs[(i, kind)] = specs
+        return tuple(
+            shardlib.local_shard(t, spec, pl.mesh, pl.coord).to(self.device)
+            for t, spec in zip(tensors, specs)
+        )
+
+    def _completions(self, forms: Tuple[str, ...]) -> List:
+        """Per projection the collective that completes its result from
+        this rank's operand block, or None where the block is whole."""
+        pl = self._mesh_pl
+        if pl is None:
+            return [None] * len(forms)
+        out = []
+        for i, form in enumerate(forms):
+            serial = self.metas[i].paradigm == "serial"
+            # (operand kind, its split dim, the result's dim to gather;
+            # None: sum the partial results)
+            kind, dim, res_dim = {
+                "-": ("event", 0, 1),             # WDM rows -> (B, N)
+                "event": ("event", 0, None),      # rows -> partial update
+                "dense": ("dense", 2, 2),         # (d, S, N) -> (d, B, N)
+                "sparse": ("sparse", 0, 0),       # ELL rows -> (R, B)
+                "temporal_sparse": ("sparse", 0, 0),
+                "temporal": ("dense" if serial else "temporal", 2, 2),
+            }[form]
+            part = self._specs[(i, kind)][0][dim]
+            group = pl.group(part)
+            if group is None:
+                out.append(None)
+            elif res_dim is None:
+                out.append(partial(exchange.all_reduce, group=group))
+            else:
+                out.append(partial(exchange.all_gather_cat, group=group,
+                                   dim=res_dim))
+        return out
+
+    def _batch_group(self, batch: int):
+        """The group the request batch is split over, or None."""
+        pl = self._mesh_pl
+        if pl is None:
+            return None
+        return pl.group(pl.spec(("steps", "batch", None), (1, batch, 1))[1])
+
+    def _local_batch(self, spikes, valid_steps):
+        """This rank's slice of the request batch: ``(spikes, valid_steps,
+        group)``, the group None where the batch is not split."""
+        group = self._batch_group(spikes.shape[1])
+        if group is None:
+            return spikes, valid_steps, None
+        n, k = exchange.group_size(group), dist.get_group_rank(
+            group, dist.get_rank())
+        lo, hi = k * spikes.shape[1] // n, (k + 1) * spikes.shape[1] // n
+        if valid_steps is not None:
+            valid_steps = valid_steps[lo:hi]
+        return spikes[:, lo:hi].contiguous(), valid_steps, group
+
+    def _halo(self) -> _Halo | None:
+        if self._assigned is None:
+            return None
+        owner, dsts = self._assigned
+        return _Halo(owner, dsts, dist.get_rank(), self.device)
+
+    def _whole_trains(self, outs, group, halo, shape):
+        """Every population's whole train on every rank: gathered along the
+        batch over ``group``, or broadcast from the rank that updated it."""
+        if group is not None:
+            return [exchange.all_gather_cat(z, group, 1) for z in outs]
+        if halo is None:
+            return outs
+        steps, batch = shape
+        whole = []
+        for p, z in zip(self.plan.update_order, outs):
+            if z is None:
+                z = torch.empty((steps, batch, self.plan.pop_sizes[p]),
+                                dtype=torch.float32, device=self.device)
+            whole.append(exchange.broadcast(z, halo.owner[p]))
+        return whole
 
     # -- launch paths --------------------------------------------------------
     def _inputs(self, spikes, valid_steps):
@@ -894,14 +1206,18 @@ class NetworkExecutable:
         forms = self.serial_forms(spikes.shape[1], serial_form)
         self._record_forms(path, spikes.shape[1], forms)
         self._entries.add((path, forms, None))
+        shape = tuple(spikes.shape[:2])
+        spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
         states = _init_graph_carry(
             self.plan, self.metas, spikes.shape[1], self.device
         )
+        params = self._params_for(forms)
+        halo = self._halo()
         outs = _scan_network(
-            self.plan, self.metas, forms, self._params_for(forms), states,
-            spikes, valid_steps,
+            self.plan, self.metas, forms, params, states, spikes,
+            valid_steps, self._completions(forms), halo,
         )
-        return self._checked(outs)
+        return self._checked(self._whole_trains(outs, group, halo, shape))
 
     def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
         """Set :attr:`last_check` from the per-population trains and
@@ -952,16 +1268,45 @@ class NetworkExecutable:
         cap = int(max_iters) if max_iters else steps + 1
         self._entries.add(("temporal", forms, cap))
         tp = self._temporal_structure()
+        spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
         states = (
-            _init_graph_carry(tp.sub_plan, self.metas, batch, self.device)
+            _init_graph_carry(tp.sub_plan, self.metas, spikes.shape[1],
+                              self.device)
             if tp.block else ()
         )
+        params = self._params_for(forms)
+        halo = self._halo()
         outs, aux = _temporal_network(
-            self.plan, self.metas, forms, tp, cap, self._params_for(forms),
-            states, spikes, valid_steps,
+            self.plan, self.metas, forms, tp, cap, params, states, spikes,
+            valid_steps, self._completions(forms), halo,
         )
-        self._record_temporal(batch, steps, cap, aux)
-        return self._checked(outs)
+        self._record_temporal(batch, steps, cap, self._whole_aux(
+            aux, group, halo))
+        return self._checked(
+            self._whole_trains(outs, group, halo, (steps, batch)))
+
+    def _whole_aux(self, aux, group, halo):
+        """The whole batch's ``(iterations, residual)`` per whole-train
+        population, as one launch over the whole batch forms them: the
+        most passes of any batch slice (each slice's columns converge on
+        their own) and the sum of the slices' last flips; under a
+        placement, the owner's."""
+        order = [p for p in self.plan.update_order
+                 if p in self._temporal_structure().modes]
+        if (group is None and halo is None) or not order:
+            return aux
+        # NCCL reduces only tensors on the card
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        stats = torch.tensor([list(aux.get(p, (0, 0))) for p in order],
+                             dtype=torch.int64, device=dev)
+        if group is not None:
+            stats = torch.stack([
+                exchange.all_reduce(stats[:, 0], group, dist.ReduceOp.MAX),
+                exchange.all_reduce(stats[:, 1], group)], 1)
+        else:   # only the owner's entry is not zero
+            stats = exchange.all_reduce(stats, None)
+        return {p: (int(a), int(b))
+                for p, (a, b) in zip(order, stats.cpu().tolist())}
 
     def _record_temporal(self, batch, steps, cap, aux) -> None:
         if self.report is None:

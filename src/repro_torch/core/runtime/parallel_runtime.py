@@ -106,16 +106,20 @@ def parallel_project(
     x_hist: torch.Tensor,     # (B, max(1, D), S) int8 spike history ring
     x_t: torch.Tensor,        # (B, S) f32 spikes at t
     t: int,
+    complete=None,
 ):
     """Dominant-PE + MAC half of ONE projection.
 
     Returns ``(x_hist, i_t)`` — the spike-history ring with ``x_t`` written
     in (in place) and the ``(B, n_target)`` f32 input current the target
-    population consumes at ``t``.
+    population consumes at ``t``.  ``complete`` gathers the current of a
+    row slab of the WDM into the whole population's.
     """
     # dominant PE + MAC array in one call: the kernel gathers each lane's
     # stacked row from the ring through the merging table itself
     i_t = spike_wdm_project(wdm_stack, col_source, col_delay, x_hist, t)
+    if complete is not None:
+        i_t = complete(i_t)
     # write x_t into the history ring AFTER the read (delays are >= 1); the
     # copy casts the 0/1 spikes to int8 exactly.  The allocated ring IS the
     # truth for the depth (clamped >= 1 at allocation via ring_depth).

@@ -123,12 +123,15 @@ def serial_update(
     *,
     delay_range: int,
     n_target: int,
+    complete=None,
 ):
     """Event form's update half: ``(upd, 0)``, ``upd`` the ``(d_slots, B,
     n_target)`` view of this step's scattered spikes.
 
     The segment ids already hold each row's ring slot ``(delay + t) mod
-    d_slots``, so the update lands unshifted.
+    d_slots``, so the update lands unshifted.  ``complete``, when given,
+    sums the flat update over the ranks that hold the other slabs of the
+    synaptic rows (:mod:`repro_torch.distributed.exchange`).
     """
     d_slots = delay_range + 1
     batch = x_t.shape[0]
@@ -147,6 +150,8 @@ def serial_update(
     updates = torch.zeros(
         batch * d_slots * n_target, dtype=torch.float32, device=x_t.device
     ).index_add_(0, seg_flat, contrib.reshape(-1))
+    if complete is not None:
+        updates = complete(updates)
     return updates.view(batch, d_slots, n_target).transpose(0, 1), 0
 
 
@@ -242,10 +247,13 @@ def serial_update_dense(
     *,
     delay_range: int,
     n_target: int,
+    complete=None,
 ):
-    """Dense form's update half: ``(x_t @ W[d] for every d, t)``."""
+    """Dense form's update half: ``(x_t @ W[d] for every d, t)``;
+    ``complete`` gathers a slab of target columns into the whole."""
     require_full_f32(x_t.device)
-    return torch.einsum("bs,dst->dbt", x_t, w_dense), t    # (d_slots, B, T)
+    upd = torch.einsum("bs,dst->dbt", x_t, w_dense)         # (d_slots, B, T)
+    return (upd if complete is None else complete(upd)), t
 
 
 def serial_step_dense(
@@ -336,11 +344,15 @@ def serial_update_sparse(
     *,
     delay_range: int,
     n_target: int,
+    complete=None,
 ):
     """Sparse form's update half: one K3 launch; ``(upd, t)``, ``upd`` the
-    ``(d_slots, B, T)`` strided view of the ``(d_slots * T, B)`` gather."""
+    ``(d_slots, B, T)`` strided view of the ``(d_slots * T, B)`` gather.
+    ``complete`` gathers a slab of ELL rows into all of them."""
     d_slots = delay_range + 1
     out = sparse_gather(ell_val, ell_idx, x_t.t())                # (R, B)
+    if complete is not None:
+        out = complete(out)
     return out.view(d_slots, n_target, -1).permute(0, 2, 1), t    # (d, B, T)
 
 

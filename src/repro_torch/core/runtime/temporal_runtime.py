@@ -104,12 +104,16 @@ def _delayed_sum(y: torch.Tensor, steps: int) -> torch.Tensor:
     return out
 
 
-def temporal_project_dense(w_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def temporal_project_dense(
+    w_dense: torch.Tensor, x: torch.Tensor, complete=None
+) -> torch.Tensor:
     """Whole-train dense projection: x (T, B, S) f32 spikes through the
-    delay-stacked weights w (d_slots, S, N) -> currents (T, B, N)."""
+    delay-stacked weights w (d_slots, S, N) -> currents (T, B, N);
+    ``complete`` gathers a slab of target columns into the whole."""
     require_full_f32(x.device)
     y = torch.einsum("tbs,dsn->dtbn", x, w_dense)
-    return _delayed_sum(y, x.shape[0])
+    out = _delayed_sum(y, x.shape[0])
+    return out if complete is None else complete(out)
 
 
 def temporal_project_sparse(
@@ -119,9 +123,11 @@ def temporal_project_sparse(
     *,
     delay_range: int,
     n_target: int,
+    complete=None,
 ) -> torch.Tensor:
     """Whole-train ELL projection: ONE gather-accumulate launch over all
     T·B spike columns, then the same shift-and-sum as the dense form.
+    ``complete`` gathers a slab of ELL rows into all of them.
 
     The (S, T·B) columns go to the kernel as a strided view of ``x``: on
     the H100 the gather from the view took less time than a source-major
@@ -130,6 +136,8 @@ def temporal_project_sparse(
     d_slots = delay_range + 1
     xs = x.permute(2, 0, 1).reshape(n_src, steps * batch)
     gat = sparse_gather(ell_val, ell_idx, xs)            # (d_slots*N, T*B)
+    if complete is not None:
+        gat = complete(gat)
     y = gat.view(d_slots, n_target, steps, batch).permute(0, 2, 3, 1)
     return _delayed_sum(y, steps)                      # y: (d_slots, T, B, N)
 

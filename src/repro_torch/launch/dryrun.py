@@ -14,8 +14,9 @@ For each cell this script
 
 The reference lowers and compiles each cell for a mesh of 256 or 512 TPU
 chips faked on the host; the port's ``--mesh single`` is one card, and
-every flag that needs a mesh of cards raises until the multi-card
-placement is ported (:data:`repro_torch.distributed.MULTI_CARD_ITEM`).
+every flag that needs a mesh of cards raises until the language models'
+half of multi-card placement is ported
+(:data:`repro_torch.distributed.MULTI_CARD_ITEM`).
 The port's layer loop is Python, so the trace counts every layer: no
 depth extrapolation is needed (``--no-extrapolate`` changes nothing).
 

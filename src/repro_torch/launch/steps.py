@@ -5,7 +5,8 @@
 (:func:`repro_torch.models.model.value_and_grad`), then one AdamW update,
 all on the parameters' device.  The sharding trees and the compressed
 cross-pod step place a model over a mesh of cards; they raise
-:class:`NotImplementedError` until multi-card placement is ported
+:class:`NotImplementedError` until the language models' half of
+multi-card placement is ported
 (:data:`repro_torch.distributed.MULTI_CARD_ITEM`).
 """
 from __future__ import annotations

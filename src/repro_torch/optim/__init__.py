@@ -1,4 +1,9 @@
-"""The port of ``repro.optim``: AdamW on trees of tensors.  The int8
-gradient compression (``optim/compression.py``, two cross-pod
-collectives) waits for multi-card placement (ROADMAP.md §1 item 2)."""
+"""The port of ``repro.optim``: AdamW on trees of tensors, and the int8
+gradient compression with its two collectives over ``torch.distributed``
+(``compression.py``).  The compressed train step that calls them belongs
+to the LM half of multi-card placement (``MULTI_CARD_ITEM``)."""
 from .adamw import AdamWConfig, AdamWState, apply_updates, global_norm, init_state, schedule
+from .compression import (
+    CompressedGrad, compress_tree, decompress_tree, dequantize, psum_compressed,
+    quantize, ring_psum_int8,
+)

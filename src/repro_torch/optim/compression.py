@@ -1,0 +1,108 @@
+"""int8 gradient compression for the cross-pod all-reduce (the port of
+``repro.optim.compression``).
+
+Each gradient tensor is quantized to int8 with a per-tensor scale before
+the reduce and dequantized after, which cuts the reduce's wire bytes 4x
+against f32.  The functions work on trees of tensors
+(:mod:`repro_torch.tree`); the two collectives run over a
+``torch.distributed`` group through :mod:`repro_torch.distributed.exchange`
+and give, rank for rank, the values the reference's ``psum`` and
+``ppermute`` give on a mesh axis of the same size.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from ..distributed import exchange
+from ..tree import tree_map
+
+
+class CompressedGrad(NamedTuple):
+    q: torch.Tensor      # int8 payload
+    scale: torch.Tensor  # f32 per-tensor scale
+
+
+def _scale(g: torch.Tensor) -> torch.Tensor:
+    """``max(amax / 127, 1e-12)`` in f32."""
+    amax = g.to(torch.float32).abs().max()
+    return torch.clamp(amax / 127.0, min=1e-12)
+
+
+def _quantize(g: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    # torch.round, like jnp.round, rounds half to even
+    q = torch.round(g.to(torch.float32) / scale)
+    return torch.clamp(q, -127, 127).to(dtype)
+
+
+def quantize(g: torch.Tensor) -> CompressedGrad:
+    scale = _scale(g)
+    return CompressedGrad(q=_quantize(g, scale, torch.int8), scale=scale)
+
+
+def dequantize(c: CompressedGrad) -> torch.Tensor:
+    return c.q.to(torch.float32) * c.scale
+
+
+def compress_tree(grads):
+    return tree_map(quantize, grads)
+
+
+def decompress_tree(ctree):
+    return _map_compressed(ctree)
+
+
+def _map_compressed(node):
+    """``dequantize`` over a tree whose leaves are :class:`CompressedGrad`
+    (a NamedTuple, which ``tree_map`` would open)."""
+    if isinstance(node, CompressedGrad):
+        return dequantize(node)
+    if isinstance(node, dict):
+        return {k: _map_compressed(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        kids = [_map_compressed(c) for c in node]
+        return type(node)(*kids) if hasattr(type(node), "_fields") else type(node)(kids)
+    return node
+
+
+def _shared_scale(g: torch.Tensor, group) -> torch.Tensor:
+    """The largest of the group's per-tensor scales (the reference's
+    ``pmax``), so dequantization is conservative and the sum consistent."""
+    return exchange.all_reduce(_scale(g), group, dist.ReduceOp.MAX)
+
+
+def psum_compressed(grads, group=None):
+    """int8 all-reduce emulation over ``group``: quantize against the
+    group's largest scale, all-reduce SUM in int32 (no int8 overflow
+    across ranks), dequantize."""
+    def one(g):
+        scale = _shared_scale(g, group)
+        total = exchange.all_reduce(_quantize(g, scale, torch.int32), group)
+        return (total.to(torch.float32) * scale).to(g.dtype)
+
+    return tree_map(one, grads)
+
+
+def ring_psum_int8(grads, group=None, size: int | None = None):
+    """All-reduce with an int8 wire format over a ring of ``group``'s
+    ranks: each of the ``size - 1`` steps moves only the int8 payload to
+    the next rank, and each rank accumulates in f32 in the reference's
+    order (its own payload, then the previous rank's, and so on round
+    the ring)."""
+    n = exchange.group_size(group)
+    if size is not None and size != n:
+        raise ValueError(f"ring size {size} but the group has {n} ranks")
+
+    def one(g):
+        scale = _shared_scale(g, group)
+        q = _quantize(g, scale, torch.int8)
+        total = q.to(torch.float32)
+        msg = q
+        for _ in range(n - 1):
+            msg = exchange.ring_shift(msg, group)   # int8 on the wire
+            total = total + msg.to(torch.float32)
+        return (total * scale).to(g.dtype)
+
+    return tree_map(one, grads)

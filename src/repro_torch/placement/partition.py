@@ -15,7 +15,9 @@ the block's gather runs.  On one device — CPU CI — the plan is the
 identity: a single group holding the whole grid, an empty halo list, and
 :func:`~repro_torch.distributed.sharding.placement_put` a no-op, so the exact
 same code path runs end-to-end unsharded (the same fallback contract as
-``snn_mesh() is None``).
+``snn_mesh() is None``).  Over several ranks (one process a card) the
+executor runs the plan: each rank updates its own tiles and sends each
+fired halo row to the ranks that read it.
 
 The resulting :class:`DeviceAssignment` is what
 ``NetworkExecutable.shard(assignment=...)`` consumes and what
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+import torch.distributed as dist
 
 from ..distributed.sharding import visible_cards
 from .grid import CoreGrid
@@ -92,13 +96,15 @@ def build_device_assignment(
 ) -> DeviceAssignment:
     """Fold a core-level placement into device groups + halo plan.
 
-    ``n_devices`` defaults to the number of visible CUDA cards and raises
-    when none is visible (pass ``n_devices`` to plan without a card); it
-    must not exceed the grid's column count (slabs are at least one
-    column wide).
+    ``n_devices`` defaults to the world size once a ``torch.distributed``
+    process group is initialized (one rank a device), and otherwise to the
+    number of visible CUDA cards, raising when none is visible (pass
+    ``n_devices`` to plan without a card); it must not exceed the grid's
+    column count (slabs are at least one column wide).
     """
     if n_devices is None:
-        n_devices = visible_cards()
+        n_devices = (dist.get_world_size() if dist.is_initialized()
+                     else visible_cards())
     if n_devices < 1:
         raise ValueError("n_devices must be >= 1")
     if n_devices > grid.cols:

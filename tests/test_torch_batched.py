@@ -188,14 +188,15 @@ def test_shard_is_the_identity_on_one_card(monkeypatch):
     assert_trains_equal(exe.run(spikes, valid_steps=valid, batched=True),
                         want["masked"], "sharded")
     assert exe.shard(rules=rules) is exe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is over the ranks of a process group: none runs here
+    with pytest.raises(RuntimeError, match="process group"):
         exe.shard(mesh=object())
-    # a host with two cards: the multi-card mesh is not ported
+    # a host with two cards and no process group: one process a card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         snn_mesh()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="one process a card"):
         exe.shard()
 
 
@@ -349,7 +350,14 @@ def test_shard_assignment_records_placement_and_keeps_outputs():
     short = dataclasses.replace(da, proj_device=da.proj_device[:-1])
     with pytest.raises(ValueError, match="projections"):
         exe.shard(assignment=short)
+    # an assignment over two devices that puts every tile on device 0
+    # runs on one process; a tile on device 1 needs a second rank
     two = dataclasses.replace(da, n_devices=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exe.shard(assignment=two)
-    assert report.placement is da
+    assert exe.shard(assignment=two) is exe and report.placement is two
+    assert_trains_equal(exe.run(spikes), want, "two devices, one used")
+    away = dataclasses.replace(
+        two, tile_device={k: 1 for k in da.tile_device},
+        proj_device=(1,) * len(da.proj_device))
+    with pytest.raises(ValueError, match="one process a device"):
+        exe.shard(assignment=away)
+    assert report.placement is two

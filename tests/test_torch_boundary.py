@@ -65,7 +65,8 @@ def test_import_leaves_jax_and_repro_out():
         "          'kernels.ssd_chunk.backward', 'data.pipeline', 'optim.adamw',\n"
         "          'checkpoint.manager', 'launch.steps', 'launch.train', 'tree',\n"
         "          'launch.shapes', 'launch.roofline', 'launch.dryrun',\n"
-        "          'launch.hardware'):\n"
+        "          'launch.hardware', 'launch.mesh', 'distributed.exchange',\n"
+        "          'optim.compression'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

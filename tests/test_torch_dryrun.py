@@ -371,4 +371,4 @@ def test_flags_that_need_a_mesh_are_refused(argv):
     with pytest.raises(NotImplementedError) as err:
         dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", *argv])
     assert MULTI_CARD_ITEM in str(err.value) and argv[0] in str(err.value)
-    assert "§1 item 2" in MULTI_CARD_ITEM
+    assert "§1 item 3" in MULTI_CARD_ITEM and "LM half" in MULTI_CARD_ITEM

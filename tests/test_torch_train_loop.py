@@ -235,6 +235,8 @@ def test_mesh_bound_step_functions_refuse_naming_the_queue_item():
         with pytest.raises(NotImplementedError) as err:
             fn(smoke_config("llama3.2-3b"), None, None)
         assert MULTI_CARD_ITEM in str(err.value) and fn.__name__ in str(err.value)
+    # the item that waits is the language models' half of the placement
+    assert "make_train_step_compressed" in MULTI_CARD_ITEM
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
