@@ -148,11 +148,12 @@ phases, none of which is caught and swallowed:
    to a sync, tokens/s, device ms, launches and busy share, peak memory)
    and profiled, K5's forward kernels and its plain backward apart.
 11. **The dry run** (``repro_torch.launch.dryrun``).  (a) Every (arch x
-   shape) cell through ``run_cell``, traced on the meta device in a
-   process of its own started before phase 1 (the card hidden from it),
-   its records written to ``build/dryrun.jsonl``: 0 errors, and exactly the
-   reference's skips (long_500k for the eight archs that are not
-   sub-quadratic).  (b) The cells phases 7, 9 and 10 measured (mamba2-130m
+   shape) cell through ``run_cell`` at ``--mesh single`` (one rank of a
+   fake world of 256) and ``--mesh multi`` (512), traced on the meta
+   device in four processes of their own started before phase 1 (the card
+   hidden from them), the records written to ``build/dryrun.jsonl``: 0
+   errors, and exactly the reference's skips at each mesh (long_500k for
+   the eight archs that are not sub-quadratic).  (b) The cells phases 7, 9 and 10 measured (mamba2-130m
    train at 8 x 1024; recurrentgemma-2b, olmoe-1b-7b at 4 layers and
    mamba2-130m bf16 prefill at 4 x 1024) counted through ``count_cell``:
    each roofline bound must not exceed the measured device ms; the
@@ -177,6 +178,23 @@ phases, none of which is caught and swallowed:
    the plan's rows, each rank's K1-K4 launches, collectives and elements
    printed, and every split K2/K3 operand slab held bitwise against its
    plain version.
+13. **The language models over a mesh of ranks** (DTensor trees under the
+   reference's sharding rules, ``launch/steps.py``).  (a) A world of one
+   NCCL rank, the 1 x 1 mesh, full width: mamba2-130m's f32 train step
+   (batch 2 x 256) through ``shard_tree`` and ``sharding_ctx`` against the
+   unsharded step on the card (loss, every gradient leaf, the updated
+   parameters and moments within ``lm_close``, as many K5 launches); its
+   bf16 step (8 x 1024) timed in turns with the unsharded one;
+   recurrentgemma-2b's bf16 prefill (4 x 1024) and 8 decode steps the
+   same way.  (b) Four ranks in spawned processes on the one card, every
+   collective through host buffers (``distributed/staged.py``):
+   mamba2-130m at full width in f32 over 2 x 2, 4 x 1 and 1 x 4 (a train
+   step of 8 x 256, a prefill of 8 x 256 and 4 decode steps), the smoke
+   configs of olmoe-1b-7b (sort and local dispatch), recurrentgemma-2b and
+   qwen3-8b over 2 x 2, and ``make_train_step_compressed`` over (pod 2,
+   data 1, model 2): every rank's gathered outputs within ``lm_close`` of
+   the unsharded step on the card (the compressed step's m within one int8
+   quantum), each rank's K5 launches and collectives printed.
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -3076,6 +3094,30 @@ DRYRUN_SKIPS = {(arch, "long_500k") for arch in (
 PEAK_OFF = 0.25
 #: the most phase 11 waits for the worker once phases 1-10 are done
 DRYRUN_WAIT_S = 600
+#: phase 11 (a) sweeps every cell at both production meshes (256 and 512
+#: ranks of a fake world) in this many card-free processes
+DRYRUN_WORKERS = 4
+DRYRUN_MESHES = ("single", "multi")
+
+
+def dryrun_shares():
+    """The sweep's (mesh, arch, shape) cells dealt to DRYRUN_WORKERS lists,
+    heaviest first to the lightest list (a cell's weight by its shape and
+    arch, from the traces' seconds on a host CPU)."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch.shapes import SHAPES
+
+    shape_w = {"train_4k": 4, "prefill_32k": 4, "decode_32k": 1, "long_500k": 0.3}
+    arch_w = {"kimi-k2-1t-a32b": 3, "musicgen-large": 2, "olmoe-1b-7b": 2}
+    cells = sorted(((m, a, s) for m in DRYRUN_MESHES for a in ARCH_NAMES
+                    for s in SHAPES),
+                   key=lambda c: -shape_w[c[2]] * arch_w.get(c[1], 1))
+    shares, load = [[] for _ in range(DRYRUN_WORKERS)], [0.0] * DRYRUN_WORKERS
+    for c in cells:
+        i = load.index(min(load))
+        shares[i].append(c)
+        load[i] += shape_w[c[2]] * arch_w.get(c[1], 1)
+    return shares
 
 
 def measured_cells():
@@ -3120,40 +3162,38 @@ def k5_backward_counted():
         ops.ssd_chunk_backward = plain
 
 
-def dryrun_worker(conn, out_path):
+def dryrun_worker(conn, out_path, cells, measured_too):
     """Phase 11's host half, in a process of its own beside phases 1-10,
-    with the card hidden: every (arch x shape) cell through ``run_cell``
-    (records to ``out_path``), then the measured cells through
+    with the card hidden: its share of the (mesh, arch, shape) cells
+    through ``run_cell`` (records to ``out_path``), then, where
+    ``measured_too``, the measured cells through the one-card
     ``count_cell``.  Sends ("ok", records, cells, seconds, card seen) or
     ("error", traceback)."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     try:
         torch.set_num_threads(1)
-        from repro_torch.configs import ARCH_NAMES
         from repro_torch.launch import dryrun, roofline
-        from repro_torch.launch.shapes import SHAPES
 
         t0 = time.perf_counter()
         records = []
         out_path.parent.mkdir(parents=True, exist_ok=True)
         with open(out_path, "w") as f:
-            for arch in ARCH_NAMES:
-                for shape in SHAPES:
-                    records.append(dryrun.run_cell(arch, shape, verbose=False))
-                    f.write(json.dumps(records[-1]) + "\n")
-        cells = []
-        for name, cfg, kind, b, seq in measured_cells():
+            for mesh, arch, shape in cells:
+                records.append(dryrun.run_cell(arch, shape, mesh, verbose=False))
+                f.write(json.dumps(records[-1]) + "\n")
+        measured = []
+        for name, cfg, kind, b, seq in (measured_cells() if measured_too else []):
             with k5_backward_counted() as k5_bwd:
                 count = dryrun.count_cell(cfg, kind, b, seq)
             terms = roofline.analyze(count)
-            cells.append(dict(name=name, kind=kind, b=b, seq=seq, k5_backward=k5_bwd,
-                              compute_ms=terms.compute_s * 1e3,
-                              memory_ms=terms.memory_s * 1e3,
-                              dominant=terms.dominant, flops=terms.flops,
-                              flops_by_dtype=terms.flops_by_dtype,
-                              hbm_bytes=terms.hbm_bytes, peak_bytes=count.peak_bytes,
-                              seconds=count.seconds))
-        conn.send(("ok", records, cells, time.perf_counter() - t0,
+            measured.append(dict(name=name, kind=kind, b=b, seq=seq, k5_backward=k5_bwd,
+                                 compute_ms=terms.compute_s * 1e3,
+                                 memory_ms=terms.memory_s * 1e3,
+                                 dominant=terms.dominant, flops=terms.flops,
+                                 flops_by_dtype=terms.flops_by_dtype,
+                                 hbm_bytes=terms.hbm_bytes, peak_bytes=count.peak_bytes,
+                                 seconds=count.seconds))
+        conn.send(("ok", records, measured, time.perf_counter() - t0,
                    torch.cuda.is_available()))
     except Exception:
         conn.send(("error", traceback.format_exc()))
@@ -3161,38 +3201,71 @@ def dryrun_worker(conn, out_path):
         conn.close()
 
 
-def dryrun_phase(card, conn, proc, measured):
-    """Phase 11: (a) the sweep's records, one line a cell, held to 0 errors
-    and the reference's skips; (b) each measured cell's bound beside its
-    device ms (the bound may not exceed it) and its predicted peak beside
-    the measured one.  Returns the rows of (b)."""
-    require(conn.poll(DRYRUN_WAIT_S),
-            f"dry run: no result from the worker within {DRYRUN_WAIT_S} s")
-    msg = conn.recv()
-    proc.join(timeout=60)
-    require(msg[0] == "ok", f"dry run: the worker failed:\n{msg[-1]}")
-    _, records, cells, seconds, saw_card = msg
-    require(not saw_card, "dry run: the worker saw a card")
+def dryrun_start():
+    """Start DRYRUN_WORKERS spawned, daemonic workers on their shares of the
+    sweep (the first also counts the measured cells); returns [(conn,
+    process)]."""
+    ctx = get_context("spawn")
+    started = []
+    for i, share in enumerate(dryrun_shares()):
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=dryrun_worker, daemon=True, args=(
+            send, DRYRUN_OUT.with_suffix(f".{i}.jsonl"), share, i == 0))
+        proc.start()
+        send.close()
+        started.append((recv, proc))
+    return started
+
+
+def dryrun_phase(card, started, measured):
+    """Phase 11: (a) the sweep's records at both meshes, one line a cell,
+    held to 0 errors and the reference's skips at each; (b) each measured
+    cell's one-card bound beside its device ms (the bound may not exceed
+    it) and its predicted peak beside the measured one.  Returns the rows
+    of (b)."""
+    t0 = time.perf_counter()
+    records, cells, seconds = [], [], []
+    for conn, proc in started:
+        left = max(1.0, DRYRUN_WAIT_S - (time.perf_counter() - t0))
+        require(conn.poll(left),
+                f"dry run: no result from a worker within {DRYRUN_WAIT_S} s")
+        msg = conn.recv()
+        proc.join(timeout=60)
+        require(msg[0] == "ok", f"dry run: a worker failed:\n{msg[-1]}")
+        _, recs, meas, secs, saw_card = msg
+        require(not saw_card, "dry run: a worker saw a card")
+        records += recs
+        cells += meas
+        seconds.append(secs)
+    with open(DRYRUN_OUT, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
     for r in records:
-        head = f"dryrun: {r['arch']} x {r['shape']}: {r['status']}"
+        head = f"dryrun: {r['arch']} x {r['shape']} x {r['mesh']}: {r['status']}"
         if r["status"] == "ok":
             mem = r["memory_analysis"]
-            print(f"{head}, {r['dominant']}; compute {r['compute_s'] * 1e3:.3f} ms, "
-                  f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
-                  f"{r['collective_s'] * 1e3:.3f} ms; peak "
+            print(f"{head}, {r['dominant']}; {r['chips']} ranks, a device: compute "
+                  f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
+                  f"collective {r['collective_s'] * 1e3:.3f} ms "
+                  f"({ {k: v for k, v in r['collective_counts'].items() if v} }); peak "
                   f"{mem['peak_bytes'] / 2**30:.3f} GiB, fits one card "
                   f"{mem['fits_one_card']}; traced in {r['compile_s']} s")
         else:
             print(f"{head}: {r.get('reason') or r.get('error')}")
-    n = {k: sum(r["status"] == k for r in records) for k in ("ok", "skipped", "error")}
-    skips = {(r["arch"], r["shape"]) for r in records if r["status"] == "skipped"}
-    print(f"dryrun: {n['ok']} ok, {n['skipped']} skipped, {n['error']} errors of "
-          f"{len(records)} cells, swept in {seconds:.1f} s on the host with no card "
-          f"visible (records in {DRYRUN_OUT.relative_to(DRYRUN_OUT.parents[1])})")
-    require(n["error"] == 0, f"dry run: {n['error']} cells failed")
-    require(skips == DRYRUN_SKIPS and n["ok"] + n["skipped"] == len(records) == 40,
-            f"dry run: skipped {sorted(skips)}, the reference skips "
-            f"{sorted(DRYRUN_SKIPS)}")
+    for mesh in DRYRUN_MESHES:
+        rs = [r for r in records if r["mesh"] == mesh]
+        n = {k: sum(r["status"] == k for r in rs) for k in ("ok", "skipped", "error")}
+        skips = {(r["arch"], r["shape"]) for r in rs if r["status"] == "skipped"}
+        print(f"dryrun: --mesh {mesh}: {n['ok']} ok, {n['skipped']} skipped, "
+              f"{n['error']} errors of {len(rs)} cells")
+        require(n["error"] == 0, f"dry run: {n['error']} cells failed at --mesh {mesh}")
+        require(skips == DRYRUN_SKIPS and n["ok"] + n["skipped"] == len(rs) == 40,
+                f"dry run --mesh {mesh}: skipped {sorted(skips)}, the reference "
+                f"skips {sorted(DRYRUN_SKIPS)}")
+    print(f"dryrun: both meshes swept in {max(seconds):.1f} s on the host with no "
+          f"card visible ({len(started)} processes: "
+          f"{', '.join(f'{s:.1f}' for s in seconds)} s; records in "
+          f"{DRYRUN_OUT.relative_to(DRYRUN_OUT.parents[1])})")
     rows = []
     for c in cells:
         m = measured[c["name"]]
@@ -3572,6 +3645,501 @@ def mesh_phase(card, kept, gesture):
     return counts
 
 
+# -- 13. the language models over a mesh of ranks -------------------------------
+LM_MESH_DIR = Path(__file__).resolve().parent / "build" / "lm_mesh"
+#: (b): mamba2-130m at full width over four ranks, its train batch (f32)
+#: and its prompt (prefill, then LM_MESH_DECODE greedy steps)
+LM_MESH_SHAPES = ((2, 2), (4, 1), (1, 4))
+LM_MESH_TRAIN, LM_MESH_PROMPT, LM_MESH_DECODE = (8, 256), (8, 256), 4
+#: (b): smoke configs over 2 x 2: (tag, arch, MoE dispatch)
+LM_MESH_SMOKE = (("olmoe-1b-7b sort", "olmoe-1b-7b", "sort"),
+                 ("olmoe-1b-7b local", "olmoe-1b-7b", "local"),
+                 ("recurrentgemma-2b", "recurrentgemma-2b", None),
+                 ("qwen3-8b", "qwen3-8b", None))
+#: (a): recurrentgemma-2b bf16 prefill and decode on the 1 x 1 mesh
+LM_MESH_RG = (4, 1024, 8)
+
+
+def close_share(got, want):
+    """lm_close's rule without raising: (within, max |diff|, share of scale)."""
+    got, want = got.detach().double(), want.detach().double().to(got.device)
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    ok = bool((diff <= 1e-4 * want.abs() + 1e-4 * scale).all()) and bool(
+        torch.isfinite(got).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    return ok, err, err / max(scale, 1e-30)
+
+
+def worst_of(pairs):
+    """(all within, worst share, worst abs) over (got, want) pairs."""
+    res = [close_share(g, w) for g, w in pairs]
+    return (all(r[0] for r in res), max(r[2] for r in res), max(r[1] for r in res))
+
+
+def card_params(cfg, seed, device):
+    """Random weights drawn on ``device`` from ``seed`` (the CPU draw of a
+    3B-parameter model takes ~30 s): norms one, every other leaf normal
+    times 0.02 (the init's scale; the comparisons hold two routes to the
+    same weights, whatever they are)."""
+    from repro_torch.models import init as minit
+    from repro_torch.tree import flatten_with_keys, unflatten_like
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = minit.param_shapes(cfg, device="meta")
+    out = []
+    for key, t in flatten_with_keys(shapes):
+        name = key.split("/")[-1].split(".")[-1]
+        if name.startswith(("ln", "gn")) or name.endswith("norm"):
+            out.append(torch.ones(t.shape, dtype=t.dtype, device=device))
+        else:
+            out.append((torch.randn(t.shape, generator=gen, device=device) * 0.02
+                        ).to(t.dtype))
+    return unflatten_like(shapes, out)
+
+
+def placed(cfg, mesh, rules, params, state=None, batch=None, device=None):
+    """The DTensor blocks of a step's arguments under the sharding trees."""
+    from repro_torch.distributed import sharding as PS
+    from repro_torch.launch import steps
+
+    out = [PS.shard_tree(params, steps.param_shardings(cfg, mesh, rules), device)]
+    if state is not None:
+        out.append(PS.shard_tree(state, steps.opt_shardings(cfg, mesh, rules), device))
+    if batch is not None:
+        out.append(PS.shard_tree(batch, {
+            k: PS.NamedSharding(mesh, PS.spec_for_shape(steps.BATCH_AXES[k], rules,
+                                                        v.shape, mesh))
+            for k, v in batch.items()}, device))
+    return out
+
+
+def lm_mesh_one_rank(card):
+    """Phase 13 (a): a world of one NCCL rank and the 1 x 1 mesh at full
+    width.  mamba2-130m's f32 train step (batch TRAIN_F32) through
+    shard_tree and DTensor against the unsharded step on the card: loss,
+    every gradient leaf, the updated parameters and moments within
+    lm_close, and as many K5 launches; its bf16 step (TRAIN_RUN's batch)
+    timed in turns with the unsharded one; recurrentgemma-2b's bf16
+    prefill and decode the same way.  Returns the K5 launches of the
+    sharded path."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as PS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init as minit, model as lm
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.tree import leaves
+
+    LM_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    store = LM_MESH_DIR / "store_one"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1)
+    k5 = 0
+    try:
+        mesh, rules = make_host_mesh(), PS.make_rules()
+        require(tuple(mesh.shape) == (1, 1), f"host mesh {tuple(mesh.shape)}")
+        # (1) the f32 train step and its gradients
+        cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+        host = minit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        params = minit.tree_to(host, CARD)
+        batch = {k: v.to(CARD) for k, v in train_batch(cfg, *TRAIN_F32, seed=0).items()}
+        step = steps.make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=3))
+        reset_launch_counts()
+        want = step(params, init_state(params), batch)
+        torch.cuda.synchronize()
+        k5_plain = launch_counts()["ssd_chunk"]
+        w_loss, w_grads = lm.value_and_grad(params, cfg, batch)
+        dp, ds, db = placed(cfg, mesh, rules, params, init_state(params), batch)
+        with PS.sharding_ctx(mesh, rules):
+            reset_launch_counts()
+            got = step(dp, ds, db)
+            torch.cuda.synchronize()
+            k5_mesh = launch_counts()["ssd_chunk"]
+            g_loss, g_grads = lm.value_and_grad(dp, cfg, db)
+        k5 += k5_mesh
+        got, g_grads, g_loss = PS.gather_tree((got, g_grads, g_loss))
+        ok, rel, err = worst_of(
+            [(g_loss, w_loss), (got[2]["loss"], want[2]["loss"])]
+            + list(zip(leaves(g_grads), leaves(w_grads)))
+            + list(zip(leaves(got[:2]), leaves(want[:2]))))
+        require(ok, f"mesh 1 x 1 mamba2 f32: the sharded step differs from the "
+                f"unsharded one (worst share {rel:.3e})")
+        require(k5_mesh == k5_plain == 2 * cfg.n_layers,
+                f"mesh 1 x 1 mamba2 f32: K5 launched {k5_mesh} times, the "
+                f"unsharded step {k5_plain}, not {2 * cfg.n_layers}")
+        print(f"lm mesh one rank [{card}]: mamba2-130m f32 (full width, remat) "
+              f"batch {TRAIN_F32[0]} x {TRAIN_F32[1]} over make_host_mesh() (1 x 1, "
+              f"nccl) against the unsharded step on the card: loss, every "
+              f"gradient leaf, the updated parameters and both moments within "
+              f"lm_close (worst {rel:.3e} of scale, max abs {err:.3e}); K5 "
+              f"launches {k5_mesh} sharded, {k5_plain} unsharded")
+        del params, dp, ds, db, got, want, g_grads, w_grads
+        # (2) the bf16 step timed in turns with the unsharded one
+        cfg = get_config("mamba2-130m")
+        run = TRAIN_RUN
+        params = minit.init_params(cfg, torch.Generator().manual_seed(0), CARD)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                                      global_batch=run["batch"]))
+        batch = {k: torch.as_tensor(v, device=CARD) for k, v in data.batch_at(0).items()}
+        step = steps.make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=30))
+        plain_state = [params, init_state(params)]
+        mesh_state = placed(cfg, mesh, rules, params, init_state(params))
+        db = placed(cfg, mesh, rules, params, batch=batch)[1]
+
+        def plain_step():
+            plain_state[0], plain_state[1], m = step(*plain_state, batch)
+            return float(m["loss"])
+
+        def mesh_step():
+            with PS.sharding_ctx(mesh, rules):
+                mesh_state[0], mesh_state[1], m = step(*mesh_state, db)
+            return float(PS.gather_tree(m["loss"]))
+
+        reset_launch_counts()
+        mesh_step()
+        torch.cuda.synchronize()
+        k5 += launch_counts()["ssd_chunk"]
+        new, new_ab, old, old_ab = in_turns(mesh_step, plain_step, reps=3)
+        rows = {}
+        for name, fn in (("sharded", mesh_step), ("unsharded", plain_step)):
+            torch.cuda.reset_peak_memory_stats()
+            total, n, _, _, _ = train_profile(fn)
+            rows[name] = (total, n, torch.cuda.max_memory_allocated())
+        tokens = run["batch"] * run["seq"]
+        for name, ms, ab in (("sharded", new, new_ab), ("unsharded", old, old_ab)):
+            total, n, peak = rows[name]
+            print(f"lm mesh one rank timing [{card}]: mamba2-130m bf16 batch "
+                  f"{run['batch']} x {run['seq']} (remat) {name}: {ms:.3f} ms a step "
+                  f"(host clock to a sync, in turns {ab[0]:.3f}, {ab[1]:.3f}), "
+                  f"{tokens * 1e3 / ms:.1f} tokens/s; device {total:.3f} ms in {n} "
+                  f"launches, busy share {total / ms:.3f}; peak device memory "
+                  f"{peak / 2**30:.3f} GiB")
+        print(f"lm mesh one rank timing [{card}]: the 1 x 1 mesh's step takes "
+              f"{new / old:.3f} of the unsharded step's host time")
+        del params, plain_state, mesh_state, db, batch
+        torch.cuda.empty_cache()
+        # (3) recurrentgemma-2b bf16: prefill and decode
+        cfg = get_config("recurrentgemma-2b")
+        b, s, n_dec = LM_MESH_RG
+        params = card_params(cfg, 0, CARD)
+        batch = {k: v.to(CARD) for k, v in lm_batch(cfg, b, s, seed=0).items()}
+        cache_len = s + n_dec
+        (dp, db) = placed(cfg, mesh, rules, params, batch=batch)
+        with torch.no_grad():
+            reset_launch_counts()
+            w_logits, w_caches = lm.prefill(params, cfg, batch, cache_len)
+            with PS.sharding_ctx(mesh, rules):
+                g_logits, g_caches = lm.prefill(dp, cfg, db, cache_len)
+            pairs = [(PS.gather_tree(g_logits), w_logits)]
+            pairs += list(zip(leaves(PS.gather_tree(g_caches)), leaves(w_caches)))
+            tok = w_logits[:, -1].float().argmax(-1)[:, None]
+            w_c, g_c = w_caches, g_caches
+            for i in range(n_dec):
+                wl, w_c = lm.decode_step(params, cfg, tok, s + i, w_c, cache_len)
+                with PS.sharding_ctx(mesh, rules):
+                    gl, g_c = lm.decode_step(dp, cfg, PS.shard_tree(
+                        {"tokens": tok}, placed_tokens(mesh, rules, tok))["tokens"],
+                        s + i, g_c, cache_len)
+                pairs.append((PS.gather_tree(gl), wl))
+                tok = wl[:, -1].float().argmax(-1)[:, None]
+            ok, rel, err = worst_of(pairs)
+            require(ok, f"mesh 1 x 1 recurrentgemma-2b bf16: sharded prefill or "
+                    f"decode differs (worst share {rel:.3e})")
+
+            def pre_plain():
+                return lm.prefill(params, cfg, batch, cache_len)
+
+            def pre_mesh():
+                with PS.sharding_ctx(mesh, rules):
+                    return lm.prefill(dp, cfg, db, cache_len)
+
+            d_tok = PS.shard_tree({"tokens": tok}, placed_tokens(mesh, rules, tok))["tokens"]
+
+            def dec_plain():
+                return lm.decode_step(params, cfg, tok, s, w_caches, cache_len)
+
+            def dec_mesh():
+                with PS.sharding_ctx(mesh, rules):
+                    return lm.decode_step(dp, cfg, d_tok, s, g_caches, cache_len)
+
+            p_new, _, p_old, _ = in_turns(pre_mesh, pre_plain, reps=3)
+            d_new, _, d_old, _ = in_turns(dec_mesh, dec_plain, reps=8)
+            prof = {k: profiled_ms(f)[:2] for k, f in (
+                ("pre_mesh", pre_mesh), ("pre_plain", pre_plain),
+                ("dec_mesh", dec_mesh), ("dec_plain", dec_plain))}
+        print(f"lm mesh one rank [{card}]: recurrentgemma-2b bf16 prefill (batch "
+              f"{b} x {s}) and {n_dec} greedy decode steps over the 1 x 1 mesh "
+              f"against the unsharded run: logits and caches within lm_close "
+              f"(worst {rel:.3e} of scale, max abs {err:.3e})")
+        for what, new, old, km, kp in (("prefill", p_new, p_old, "pre_mesh", "pre_plain"),
+                                       ("decode step", d_new, d_old, "dec_mesh", "dec_plain")):
+            print(f"lm mesh one rank timing [{card}]: recurrentgemma-2b bf16 {what}: "
+                  f"sharded {new:.3f} ms (device {prof[km][0]:.3f} ms in "
+                  f"{prof[km][1]} launches, busy {prof[km][0] / new:.3f}), unsharded "
+                  f"{old:.3f} ms (device {prof[kp][0]:.3f} ms in {prof[kp][1]} "
+                  f"launches, busy {prof[kp][0] / old:.3f}); ratio {new / old:.3f}")
+        del params, dp, db, w_caches, g_caches, w_c, g_c
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"ssd_chunk": k5}
+
+
+def placed_tokens(mesh, rules, tok):
+    from repro_torch.distributed import sharding as PS
+    return {"tokens": PS.NamedSharding(mesh, PS.spec_for_shape(
+        ("batch", None), rules, tok.shape, mesh))}
+
+
+def lm_mesh_case(name, cfg, mesh, rules, batch, prompt, n_dec, device):
+    """One case on this rank, over ``mesh`` and unsharded on the same card:
+    the loss and every gradient leaf; the train step's loss and moments;
+    its updated parameters against one AdamW update of the same (gathered)
+    gradients on one card (independent steps are not compared: Adam's
+    first step moves an element by about +-lr, so a gradient near 0 whose
+    sign differs moves it by 2 lr); a prefill and ``n_dec`` decode
+    steps.  Returns (within, worst share by part, K5 launches and
+    collectives of the sharded train step)."""
+    from repro_torch.distributed import exchange, sharding as PS, staged
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import init as minit, model as lm
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.tree import leaves
+
+    opt = AdamWConfig(warmup_steps=1, total_steps=3)
+    params = minit.init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    step = steps.make_train_step(cfg, opt)
+    want = step(params, init_state(params), batch)
+    w_loss, w_grads = lm.value_and_grad(params, cfg, batch)
+    dp, ds, db = placed(cfg, mesh, rules, params, init_state(params), batch)
+    staged.reset_calls()
+    exchange.reset_exchange_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with PS.sharding_ctx(mesh, rules):
+        got = step(dp, ds, db)
+        on_card = blocks_on(got[:2], device)
+        got = PS.gather_tree(got)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k5 = launch_counts()["ssd_chunk"]
+    calls = {k: tuple(v) for k, v in staged.CALLS.items()}
+    with PS.sharding_ctx(mesh, rules):
+        g_loss, g_grads = lm.value_and_grad(dp, cfg, db)
+        upd = PS.gather_tree(apply_updates(dp, g_grads, ds, opt)[:2])
+        g_loss, g_grads = PS.gather_tree((g_loss, g_grads))
+    same = apply_updates(params, g_grads, init_state(params), opt)
+    parts = {
+        "loss and gradients": [(g_loss, w_loss), (got[2]["loss"], want[2]["loss"])]
+        + list(zip(leaves(g_grads), leaves(w_grads))),
+        "moments": list(zip(leaves((got[1].m, got[1].v)),
+                            leaves((want[1].m, want[1].v)))),
+        "update of the same gradients": list(zip(leaves(upd), leaves(same[:2]))),
+        "prefill and decode": []}
+    cache_len = prompt["tokens"].shape[1] + n_dec
+    (db_p,) = placed(cfg, mesh, rules, params, batch=prompt)[1:]
+    with torch.no_grad():
+        w_logits, w_c = lm.prefill(params, cfg, prompt, cache_len)
+        with PS.sharding_ctx(mesh, rules):
+            g_logits, g_c = lm.prefill(dp, cfg, db_p, cache_len)
+        pd = parts["prefill and decode"]
+        pd.append((PS.gather_tree(g_logits), w_logits))
+        pd += list(zip(leaves(PS.gather_tree(g_c)), leaves(w_c)))
+        tok = w_logits[:, -1].float().argmax(-1)[:, None]
+        s = prompt["tokens"].shape[1]
+        for i in range(n_dec):
+            wl, w_c = lm.decode_step(params, cfg, tok, s + i, w_c, cache_len)
+            with PS.sharding_ctx(mesh, rules):
+                d_tok = PS.shard_tree({"tokens": tok}, placed_tokens(mesh, rules, tok))
+                gl, g_c = lm.decode_step(dp, cfg, d_tok["tokens"], s + i, g_c, cache_len)
+            pd.append((PS.gather_tree(gl), wl))
+            tok = wl[:, -1].float().argmax(-1)[:, None]
+        pd += list(zip(leaves(PS.gather_tree(g_c)), leaves(w_c)))
+    shares = {k: worst_of(v) for k, v in parts.items()}
+    ok = all(v[0] for v in shares.values())
+    return {"case": name, "ok": ok and on_card, "on_card": on_card,
+            "rel": max(v[1] for v in shares.values()),
+            "err": max(v[2] for v in shares.values()),
+            "parts": {k: v[1] for k, v in shares.items()}, "k5": k5,
+            "calls": calls, "exchange": {k: v for k, v in exchange.exchange_counts().items()
+                                         if v["calls"]}, "train_ms": ms}
+
+
+def blocks_on(tree, device) -> bool:
+    """Does every DTensor leaf of ``tree`` hold its block on ``device``
+    (DTensor moves a block to its mesh's device type)?"""
+    from repro_torch.tree import leaves
+
+    want = torch.device(device).type
+    return all(t.to_local().device.type == want for t in leaves(tree)
+               if hasattr(t, "to_local"))
+
+
+def lm_mesh_compressed(cfg, batch, device):
+    """make_train_step_compressed over (pod 2, data 1, model 2) on this
+    rank against its oracle on the card: each pod's gradient summed in
+    full precision (the reference's sum over pods), the loss averaged, one
+    AdamW step; the loss within lm_close and every element of m within
+    (1 - b1) of one int8 quantum of its leaf's shared scale."""
+    from repro_torch.distributed import sharding as PS, staged
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init as minit, model as lm
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.tree import leaves, unflatten_like
+
+    opt = AdamWConfig(warmup_steps=1, total_steps=3)
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    rules = PS.make_rules(multi_pod=True)
+    params = minit.init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    half = batch["tokens"].shape[0] // 2
+    pods = [lm.value_and_grad(params, cfg, {k: v[sl] for k, v in batch.items()})
+            for sl in (slice(0, half), slice(half, None))]
+    g_sum = unflatten_like(pods[0][1], [a + b for a, b in zip(leaves(pods[0][1]),
+                                                              leaves(pods[1][1]))])
+    _, w_opt, _ = apply_updates(params, g_sum, init_state(params), opt)
+    w_loss = (pods[0][0] + pods[1][0]) / 2
+    scales = [max(float(a.abs().max()), float(b.abs().max())) / 127.0
+              for a, b in zip(leaves(pods[0][1]), leaves(pods[1][1]))]
+    dp, ds, db = placed(cfg, mesh, rules, params, init_state(params), batch)
+    staged.reset_calls()
+    reset_launch_counts()
+    p2, o2, met = steps.make_train_step_compressed(cfg, opt, mesh, n_pods=2)(dp, ds, db)
+    k5 = launch_counts()["ssd_chunk"]
+    on_card = blocks_on((p2, o2), device)
+    m_got = leaves(PS.gather_tree(o2.m))
+    worst = max(float((g - w.to(g.device)).abs().max())
+                / ((1 - opt.b1) * max(sc, 1e-12))
+                for g, w, sc in zip(m_got, leaves(w_opt.m), scales))
+    ok, rel, err = close_share(met["loss"], w_loss)
+    return {"case": "compressed (pod 2, data 1, model 2)",
+            "ok": ok and worst <= 1.001 and on_card, "on_card": on_card,
+            "rel": rel, "err": err, "quanta": worst, "k5": k5,
+            "calls": {k: tuple(v) for k, v in staged.CALLS.items()}}
+
+
+def lm_mesh_rank(rank, world, out_dir):
+    """One rank of phase 13 (b): every collective host-staged on the one
+    card (``cpu:gloo,cuda:staged``); the cases' results to a JSON file."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import sharding as PS, staged
+    from repro_torch.launch.mesh import make_host_mesh
+
+    device = CARD
+    if CARD == "cuda":
+        torch.cuda.set_device(0)
+        staged.register()
+        backend = "cpu:gloo,cuda:staged"
+    else:
+        staged.register(devices=("cpu",))
+        backend = "cpu:staged"
+    dist.init_process_group(backend, store=dist.FileStore(str(out_dir / "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S // 2))
+    res = {"rank": rank, "backend": dist.get_backend(), "cases": []}
+    full = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    batch = {k: v.to(device) for k, v in
+             train_batch(full, *LM_MESH_TRAIN, seed=0).items()}
+    prompt = {k: v.to(device) for k, v in
+              lm_batch(full, *LM_MESH_PROMPT, seed=1).items()}
+    for data, model in LM_MESH_SHAPES:
+        mesh = make_host_mesh(model)
+        row = lm_mesh_case(f"mamba2-130m f32 {data} x {model}", full, mesh,
+                           PS.make_rules(), batch, prompt, LM_MESH_DECODE, device)
+        res["cases"].append(row)
+    for tag, arch, dispatch in LM_MESH_SMOKE:
+        cfg = smoke_config(arch)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0, dispatch=dispatch))
+        sb = {k: v.to(device) for k, v in train_batch(cfg, 8, 64, seed=0).items()}
+        sp = {k: v.to(device) for k, v in lm_batch(cfg, 8, 64, seed=1).items()}
+        res["cases"].append(lm_mesh_case(f"{tag} smoke 2 x 2", cfg, make_host_mesh(2),
+                                         PS.make_rules(), sb, sp, LM_MESH_DECODE,
+                                         device))
+    res["cases"].append(lm_mesh_compressed(full, batch, device))
+    with open(out_dir / f"rank{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def lm_mesh_four_ranks(card):
+    """Phase 13 (b): four ranks on the one card (NCCL refuses two ranks on
+    one card: every collective host-staged); every rank's gathered outputs
+    of every case against the unsharded step on the card."""
+    t0 = time.perf_counter()
+    out_dir = LM_MESH_DIR / "four"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    ctx = get_context("spawn")
+    procs = [ctx.Process(target=lm_mesh_rank, args=(r, MESH_RANKS, out_dir))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * MESH_RANKS, f"lm mesh four ranks: exit codes {codes}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(out_dir / f"rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    for i, row in enumerate(ranks[0]["cases"]):
+        rows = [res["cases"][i] for res in ranks]
+        name = row["case"]
+        require(all(r["on_card"] for r in rows),
+                f"lm mesh four ranks {name}: a rank's blocks left the card")
+        require(all(r["ok"] for r in rows),
+                f"lm mesh four ranks {name}: ranks within the tolerance "
+                f"{[r['ok'] for r in rows]} (worst shares {[r['rel'] for r in rows]}"
+                + (f", quanta {[r['quanta'] for r in rows]})" if "quanta" in row
+                   else f", by part {[r['parts'] for r in rows]})"))
+        if name.startswith("mamba2") or name.startswith("compressed"):
+            require(all(r["k5"] > 0 for r in rows),
+                    f"lm mesh four ranks {name}: K5 launches {[r['k5'] for r in rows]}")
+        rule = (f"m within {max(r['quanta'] for r in rows):.3f} of (1 - b1) one int8 "
+                "quantum, loss within lm_close" if "quanta" in row else
+                f"within lm_close of the unsharded step (worst share of scale "
+                + ", ".join(f"{k} {max(r['parts'][k] for r in rows):.3e}"
+                            for k in row["parts"]) + ")")
+        print(f"lm mesh four ranks [{card}]: {name}: every rank {rule} "
+              f"({ranks[0]['backend']}); per rank: " + "; ".join(
+                  f"r{k} K5 {r['k5']}, collectives "
+                  f"{ {op: (c, b) for op, (c, b) in r['calls'].items()} }"
+                  + (f", train step {r['train_ms']:.0f} ms" if "train_ms" in r else "")
+                  for k, r in enumerate(rows)))
+    print(f"lm mesh four ranks [{card}]: {len(ranks[0]['cases'])} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def lm_mesh_phase(card):
+    """Phase 13: (a) one NCCL rank at full width, (b) four ranks on the
+    card.  Returns the K5 launches of (a)'s sharded path."""
+    counts = lm_mesh_one_rank(card)
+    lm_mesh_four_ranks(card)
+    return counts
+
+
 # -- kernel timings --------------------------------------------------------------
 def kernel_rows(path, err, counts, card, temporal_gather, temporal_steps,
                 extra_fixed_points):
@@ -3942,14 +4510,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     require(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
-    # 11. the dry run's sweep needs no card: it runs beside phases 1-10 in a
-    # daemonic process (ended with the script whatever happens)
-    ctx = get_context("spawn")
-    dry_conn, dry_send = ctx.Pipe(duplex=False)
-    dry_proc = ctx.Process(target=dryrun_worker, args=(dry_send, DRYRUN_OUT),
-                           daemon=True)
-    dry_proc.start()
-    dry_send.close()
+    # 11. the dry run's sweep needs no card: it runs beside phases 1-10 in
+    # daemonic processes (ended with the script whatever happens)
+    dry_started = dryrun_start()
 
     # 1. build
     t0 = time.perf_counter()
@@ -4194,7 +4757,7 @@ def main() -> int:
 
     lap("11. the dry run")
     # 11. the dry run: the sweep's records, and the measured cells' bounds
-    dryrun_phase(card, dry_conn, dry_proc, measured)
+    dryrun_phase(card, dry_started, measured)
 
     lap("12. the SNN over a mesh of ranks")
     # 12. (a) the 100k scaffold under a 1 x 1 mesh on one NCCL rank, its
@@ -4202,6 +4765,13 @@ def main() -> int:
     m_counts = mesh_phase(card, s_kept, (net, reports["classifier"], batches[1]))
     for row in rows:
         row["launches"] += m_counts.get(row["name"], 0)
+
+    lap("13. the language models over a mesh of ranks")
+    # 13. (a) mamba2-130m and recurrentgemma-2b under a 1 x 1 mesh on one
+    # NCCL rank, K5 counted around the sharded path; (b) four ranks on the card
+    lm_counts = lm_mesh_phase(card)
+    for row in rows:
+        row["launches"] += lm_counts.get(row["name"], 0)
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

@@ -12,9 +12,9 @@ the port's collectives are written out in ``exchange``.
 """
 from .exchange import exchange_counts, reset_exchange_counts, transport
 from .sharding import (
-    MULTI_CARD_ITEM, PartitionSpec, make_rules, mesh_sizes, placement_put,
-    snn_mesh, snn_rules, spec_for, spec_for_shape, tree_shardings,
-    visible_cards,
+    NamedSharding, PartitionSpec, constrain, gather_tree, make_rules,
+    mesh_sizes, placement_put, shard_tree, sharding_ctx, snn_mesh, snn_rules,
+    spec_for, spec_for_shape, tree_shardings, visible_cards,
 )
 from .fault_tolerance import (
     FaultTolerantDriver, HeartbeatRegistry, HostFailure, RestartPolicy,

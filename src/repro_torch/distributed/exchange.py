@@ -149,9 +149,13 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     prv = dist.get_global_rank(group, (me - 1) % n)
     w = _wire(t, group)
     got = torch.empty_like(w)
-    ops = [dist.P2POp(dist.isend, w, nxt, group=group),
-           dist.P2POp(dist.irecv, got, prv, group=group)]
-    for req in dist.batch_isend_irecv(ops):
+    if w.device.type == "meta":
+        # the dry run's trace on a fake world, which batches no meta ops
+        reqs = [dist.isend(w, nxt, group=group), dist.irecv(got, prv, group=group)]
+    else:
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, w, nxt, group=group),
+                                       dist.P2POp(dist.irecv, got, prv, group=group)])
+    for req in reqs:
         req.wait()
     _count("ring_shift", got.numel())
     return got.to(t.device)

@@ -27,27 +27,30 @@ mesh coordinate ``(r // m, r % m)``.
   names; the other ranks do not keep it.
 * :func:`snn_rules` is the logical-axis rules table of the SNN runtime.
 
-``sharding_ctx`` and ``constrain`` (the language models' activation
-constraints) belong to the LM half of multi-card placement and are not
-ported yet (:data:`MULTI_CARD_ITEM`).
+The language models place their trees with DTensor, PyTorch's
+counterpart of GSPMD (``torch.distributed.tensor``):
+
+* :class:`NamedSharding` is ``(mesh, spec)`` with the DTensor
+  ``placements`` the spec means; :func:`tree_shardings` gives one a leaf;
+* :func:`shard_tree` gives each rank its DTensor blocks of full host
+  tensors (the counterpart of ``jit``'s ``in_shardings``; no collective
+  runs), :func:`gather_tree` the full tensors back (``out_shardings``
+  replicated);
+* :func:`sharding_ctx` and :func:`constrain` are the reference's
+  activation constraints: inside the context ``constrain`` redistributes a
+  DTensor to the rules' spec for its shape, and a plain tensor made inside
+  the step (a mask, the positions) counts as replicated over the mesh;
+  outside it ``constrain`` is the identity.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Mapping, Optional
+import threading
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
-
-#: Where the multi-card placement stands: the queue item that ports the
-#: language models' half of it.
-MULTI_CARD_ITEM = (
-    "the language models' multi-card placement (launch.steps' sharding "
-    "trees, make_train_step_compressed, the dry run's --mesh multi) is not "
-    "ported yet (ROADMAP.md §1 item 3: multi-card placement, the LM half); "
-    "the SNN executor's shard(mesh=) and shard(assignment=) run over "
-    "torch.distributed ranks"
-)
 
 #: What to do when several cards are visible and no process group runs.
 ONE_PROCESS_A_CARD = (
@@ -190,13 +193,51 @@ def spec_for_shape(axes, rules, shape, mesh) -> PartitionSpec:
     return P(*parts)
 
 
+def placements_for(spec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh`` (a DeviceMesh): one
+    per mesh axis, ``Shard(d)`` where the spec splits dim ``d`` over that
+    axis of more than one rank, else ``Replicate()``.  A dim split over several axes splits in
+    the mesh's axis order, major to minor (DTensor's order for ``Shard(d)``
+    on several mesh dims, and JAX's for ``("pod", "data")``); a spec that
+    lists them in another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        axes = () if part is None else (part,) if isinstance(part, str) else part
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {d} lists mesh axes {axes} "
+                             f"out of the mesh's order {tuple(names)}")
+        for i in idx:
+            # a split over one rank is no split (and DTensor would refuse
+            # to reshape a dim it holds split)
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """The stand-in for ``jax.sharding.NamedSharding``: a mesh and a
+    :class:`PartitionSpec`; :attr:`placements` are the DTensor placements
+    they mean (the mesh must then be a DeviceMesh)."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.spec, self.mesh)
+
+
 def tree_shardings(spec_tree, shape_tree, mesh, rules: dict):
     """Map a tree of logical-axis tuples and the same tree of shaped
-    leaves (tensors, or anything with ``.shape``) to ``(mesh,
-    PartitionSpec)`` per leaf; every plain tuple of the spec tree is a
-    leaf, as in the reference."""
+    leaves (tensors, or anything with ``.shape``) to a
+    :class:`NamedSharding` per leaf; every plain tuple of the spec tree is
+    a leaf, as in the reference."""
     if isinstance(spec_tree, tuple) and not hasattr(type(spec_tree), "_fields"):
-        return mesh, spec_for_shape(spec_tree, rules, shape_tree.shape, mesh)
+        return NamedSharding(mesh, spec_for_shape(spec_tree, rules,
+                                                  shape_tree.shape, mesh))
     if isinstance(spec_tree, dict):
         return {k: tree_shardings(v, shape_tree[k], mesh, rules)
                 for k, v in spec_tree.items()}
@@ -269,8 +310,13 @@ def snn_mesh(ranks=None, *, model_axis: int = 1):
 def _device_mesh(ranks, shape, names):
     from torch.distributed.device_mesh import DeviceMesh
 
-    # NCCL carries CUDA tensors; every other backend runs on host tensors
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    # NCCL, and the host-staged backend named for "cuda:", carry CUDA
+    # tensors (DTensor moves every block to its mesh's device type); every
+    # other backend runs on host tensors (a fake world's meta tensors too:
+    # DTensor then runs a shard-to-shard redistribution as an all-gather
+    # and a local chunk, not an all-to-all)
+    backend = dist.get_backend()
+    device_type = "cuda" if backend == "nccl" or "cuda:" in backend else "cpu"
     grid = torch.tensor(list(ranks), dtype=torch.int64).reshape(shape)
     return DeviceMesh(device_type, grid, mesh_dim_names=names)
 
@@ -298,3 +344,142 @@ def placement_put(t: torch.Tensor, device_index: int):
     if not 0 <= device_index < n:
         raise ValueError(f"device index {device_index} outside 0..{n - 1}")
     return t if dist.get_rank() == device_index else None
+
+
+# -- DTensor trees -----------------------------------------------------------------
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, NamedSharding)
+
+
+def _zip_map(fn, tree, shardings):
+    """``fn(leaf, sharding)`` over a tree and its tree of shardings (the
+    shardings' tree may stop at a :class:`NamedSharding` above a subtree,
+    as ``opt_shardings``' ``step`` does not; ``None`` leaves stay)."""
+    if _is_sharding(shardings):
+        return fn(tree, shardings)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(_zip_map(fn, getattr(tree, f), getattr(shardings, f))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, t, s) for t, s in zip(tree, shardings))
+    raise TypeError(f"no sharding for a leaf of type {type(tree).__name__}")
+
+
+def shard_leaf(t: torch.Tensor, sharding: NamedSharding, device=None):
+    """This rank's DTensor block of the full tensor ``t`` (every rank holds
+    all of ``t``; nothing moves between ranks), on ``device`` (default:
+    ``t``'s).  The block is :func:`local_slices`' at this rank's mesh
+    coordinate, which ``DTensor.from_local`` takes as the placements'."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = sharding.mesh
+    t = torch.as_tensor(t)
+    block = local_shard(t, sharding.spec, mesh, mesh_coordinate(mesh))
+    block = block.to(t.device if device is None else device)
+    if block is t:
+        block = t.clone()
+    return DTensor.from_local(block, mesh, sharding.placements,
+                              run_check=False, shape=t.shape,
+                              stride=torch.empty(t.shape, device="meta").stride())
+
+
+def shard_tree(tree, shardings, device=None):
+    """Every leaf of ``tree`` (full tensors, the same on every rank) as
+    this rank's DTensor block under the same tree of
+    :class:`NamedSharding` s: the counterpart of ``jax.jit``'s
+    ``in_shardings``."""
+    return _zip_map(lambda t, s: shard_leaf(t, s, device), tree, shardings)
+
+
+def gather_tree(tree):
+    """Every DTensor leaf of ``tree`` as its full tensor on every rank (the
+    counterpart of replicated ``out_shardings``); other leaves stay."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(gather_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v) for v in tree)
+    return tree
+
+
+def map_blocks(fn, t):
+    """``fn`` on a DTensor's local block, re-wrapped with its placements
+    (none may be a pending sum); on any other tensor ``fn(t)``.  For work
+    that ranks holding the same block do alike (a gradient's sum across
+    pods)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return fn(t)
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"a DTensor with pending sums {t.placements}: "
+                         "redistribute it first")
+    return DTensor.from_local(fn(t.to_local()), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape, stride=t.stride())
+
+
+def resolve_partial(t):
+    """A DTensor with its pending sums done (each ``Partial`` placement
+    made ``Replicate``, the others kept); any other tensor itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+# -- activation constraint context ------------------------------------------------
+
+_ctx = threading.local()
+
+
+def current_ctx():
+    """``(mesh, rules)`` of the active :func:`sharding_ctx`, or None."""
+    return getattr(_ctx, "v", None)
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: dict):
+    """While active, :func:`constrain` redistributes to the rules' specs on
+    ``mesh`` (a DeviceMesh), and plain tensors that meet a DTensor in an op
+    count as replicated over the mesh (DTensor's ``implicit_replication``:
+    the masks, positions and zero buffers a step makes for itself)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    prev = current_ctx()
+    _ctx.v = (mesh, rules)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _ctx.v = prev
+
+
+def constrain(x, axes):
+    """Constrain activation ``x`` to the logical ``axes`` if a ctx is
+    active: the DTensor ``x`` redistributed to the rules' spec for its
+    shape.  Inside a context ``x`` must be a DTensor on the context's mesh
+    (a plain tensor there raises: the step was not given its shardings)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    mesh, rules = ctx
+    if not isinstance(x, DTensor):
+        raise TypeError(
+            f"constrain{tuple(axes)}: a {type(x).__name__} inside "
+            "sharding_ctx; shard the step's inputs with shard_tree first")
+    spec = spec_for_shape(axes, rules, x.shape, mesh)
+    return x.redistribute(mesh, placements_for(spec, mesh))

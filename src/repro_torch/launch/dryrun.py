@@ -3,41 +3,56 @@
 
 For each cell this script
 
-1. builds the parameters, optimizer state, batch and caches as meta
-   tensors (shapes and dtypes, no storage: zero allocation, no card),
-2. runs the cell's step once on them (``launch/steps.py``: train, prefill
-   or serve) under the counters of :func:`.roofline.count_step`,
-3. records the step's argument, output and peak bytes (the fits-in-memory
-   proof: peak <= 80 GB) and its FLOPs and bytes,
-4. derives the three roofline terms (launch/roofline.py) at one H100's
-   constants and appends the cell record to a JSON results file.
+1. builds the production mesh over a fake world in this process
+   (:func:`.mesh.fake_world`: 16 x 16 = 256 ranks for ``--mesh single``,
+   2 x 16 x 16 = 512 for ``--mesh multi``; the reference forces as many
+   host devices),
+2. builds the parameters, optimizer state, batch and caches as meta
+   tensors (shapes and dtypes, no storage: zero allocation, no card) and
+   gives rank 0 its DTensor blocks of them under the reference's sharding
+   trees (``launch/steps.py``, ``make_rules(fsdp, multi_pod, seq_axis,
+   kv_seq_shard)``),
+3. runs the cell's step once on them (train, prefill or serve, inside
+   ``sharding_ctx``; ``--grad-compress`` runs the compressed cross-pod
+   train step) under the counters of :func:`.roofline.count_step`, which
+   see rank 0's local ops and the collectives DTensor inserts,
+4. records the step's argument, output and peak bytes a device (the
+   fits-in-memory proof: peak <= 80 GB), its FLOPs and bytes a device and
+   its collectives,
+5. derives the three roofline terms (launch/roofline.py) at one H100's
+   constants and its links', and appends the cell record to a JSON
+   results file.
 
-The reference lowers and compiles each cell for a mesh of 256 or 512 TPU
-chips faked on the host; the port's ``--mesh single`` is one card, and
-every flag that needs a mesh of cards raises until the language models'
-half of multi-card placement is ported
-(:data:`repro_torch.distributed.MULTI_CARD_ITEM`).
-The port's layer loop is Python, so the trace counts every layer: no
-depth extrapolation is needed (``--no-extrapolate`` changes nothing).
+The records are predictions from a trace, not measurements.
+:func:`count_cell` without a mesh is the one-card trace (``chips`` 1, no
+collective), which ``chip_smoke.py`` holds against measured steps.  The
+port's layer loop is Python, so the trace counts every layer: no depth
+extrapolation is needed (``--no-extrapolate`` changes nothing).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
-    python -m repro_torch.launch.dryrun --all --out results.jsonl
+    python -m repro_torch.launch.dryrun --all --mesh multi --out results.jsonl
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import time
 import traceback
 
 from ..configs import ARCH_NAMES, get_config
-from ..distributed.sharding import MULTI_CARD_ITEM
+from ..distributed.sharding import (
+    NamedSharding, make_rules, shard_tree, sharding_ctx, spec_for_shape,
+    tree_shardings,
+)
 from ..models import init as minit, model as M
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, init_state
 from .hardware import H100
+from .mesh import fake_world, make_production_mesh
 from .roofline import CollectiveStats, RooflineTerms, analyze, count_step
 from .shapes import SHAPES, shape_applicable, step_batch_specs, tokens_per_step
 from . import steps as S
@@ -48,7 +63,7 @@ def cell_step(cfg: ModelConfig, kind: str, batch: int, seq: int):
     ``cfg`` over ``batch`` sequences of ``seq`` positions.  Decode is one
     new token against a ``seq``-long cache at position ``seq - 1``, a
     Python int (a tensor position would be read back to the host)."""
-    params = minit.param_specs(cfg)
+    params = minit.param_shapes(cfg)
     b_specs = step_batch_specs(cfg, kind, batch, seq)
     if kind == "train":
         return (S.make_train_step(cfg, AdamWConfig()),
@@ -60,12 +75,69 @@ def cell_step(cfg: ModelConfig, kind: str, batch: int, seq: int):
             (params, caches, b_specs["tokens"], seq - 1))
 
 
-def count_cell(cfg: ModelConfig, kind: str, batch: int, seq: int):
+def shard_cell_args(cfg: ModelConfig, kind: str, args, mesh, rules: dict):
+    """This rank's DTensor blocks of :func:`cell_step`'s ``args`` (meta or
+    real tensors) over ``mesh`` under ``rules``: the reference's
+    ``jax.jit(step, in_shardings=...)`` arguments, one rank's share."""
+    p_sh = S.param_shardings(cfg, mesh, rules)
+
+    def batch(tree):
+        return shard_tree(tree, {
+            k: NamedSharding(mesh, spec_for_shape(S.BATCH_AXES[k], rules,
+                                                  v.shape, mesh))
+            for k, v in tree.items()})
+
+    params = shard_tree(args[0], p_sh)
+    if kind == "train":
+        return (params, shard_tree(args[1], S.opt_shardings(cfg, mesh, rules)),
+                batch(args[2]))
+    if kind == "prefill":
+        return params, batch(args[1])
+    caches, tokens, pos = args[1:]
+    c_sh = tree_shardings(S.cache_logical_specs(cfg), caches, mesh, rules)
+    return (params, shard_tree(caches, c_sh), batch({"tokens": tokens})["tokens"],
+            pos)
+
+
+def mesh_cell_step(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh,
+                   rules: dict, grad_compress: bool = False):
+    """(step, this rank's meta DTensor arguments) of :func:`cell_step` over
+    ``mesh``; a compressed train step where ``grad_compress``; over a mesh
+    with a ``pod`` axis, the steps over pods (``launch.steps``:
+    ``make_train_step_pods``, ``on_pods``)."""
+    step, args = cell_step(cfg, kind, batch, seq)
+    pods = "pod" in mesh.mesh_dim_names
+    if grad_compress and kind == "train":
+        step = S.make_train_step_compressed(
+            cfg, AdamWConfig(), mesh,
+            n_pods=dict(zip(mesh.mesh_dim_names, mesh.shape)).get("pod", 1))
+    elif pods and kind == "train":
+        step = S.make_train_step_pods(cfg, AdamWConfig(), mesh, rules)
+    elif pods:
+        step = S.on_pods(step, mesh, rules)
+    return step, shard_cell_args(cfg, kind, args, mesh, rules)
+
+
+def count_cell(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh=None,
+               rules=None, grad_compress: bool = False):
     """Trace :func:`cell_step` on the meta device; returns its
     :class:`~.roofline.StepCount`, or raises if the trace touched any
-    other device."""
-    step, args = cell_step(cfg, kind, batch, seq)
-    _, count = count_step(step, *args)
+    other device.  With a ``mesh`` (of a :func:`.mesh.fake_world`) the
+    count is one rank's of the step over the mesh under ``rules``, inside
+    ``sharding_ctx`` (the compressed step opens none, as the
+    reference's)."""
+    if mesh is None:
+        step, args = cell_step(cfg, kind, batch, seq)
+        ctx = contextlib.nullcontext()
+    else:
+        step, args = mesh_cell_step(cfg, kind, batch, seq, mesh, rules,
+                                    grad_compress and kind == "train")
+        # the steps over pods open their own context within a pod
+        ctx = (contextlib.nullcontext()
+               if grad_compress or "pod" in mesh.mesh_dim_names
+               else sharding_ctx(mesh, rules))
+    with ctx:
+        _, count = count_step(step, *args)
     if count.devices != {"meta"}:
         raise RuntimeError(f"the trace touched {sorted(count.devices)}, not "
                            "only the meta device")
@@ -118,24 +190,15 @@ def extrapolated_terms(cfg: ModelConfig, kind: str, batch: int, seq: int,
     )
 
 
-def _refuse_mesh_flags(mesh_kind, seq_axis, fsdp, kv_seq_shard, grad_compress):
-    asked = [name for name, on in (
-        (f"--mesh {mesh_kind}", mesh_kind != "single"),
-        ("--seq-axis", seq_axis is not None),
-        ("--fsdp 1", bool(fsdp)),
-        ("--kv-seq-shard", kv_seq_shard),
-        ("--grad-compress", grad_compress),
-    ) if on]
-    if asked:
-        raise NotImplementedError(
-            f"dryrun {', '.join(asked)} needs a mesh of cards: {MULTI_CARD_ITEM}")
+#: the reference's production meshes: (shape, axes) by --mesh
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str = "single", *, seq_axis=None,
              dispatch=None, loss_chunk=None, opt=False, fsdp=None,
              kv_seq_shard=False, grad_compress=False, no_extrapolate=False,
              tag=None, verbose=True) -> dict:
-    _refuse_mesh_flags(mesh_kind, seq_axis, fsdp, kv_seq_shard, grad_compress)
     cfg = get_config(arch)
     if opt:
         # the beyond-paper optimized bundle (§Perf): chunked CE, bf16
@@ -164,10 +227,16 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single", *, seq_axis=None,
         rec.update(status="skipped", reason=skip)
         return rec
 
-    chips = 1
+    multi = mesh_kind == "multi"
+    chips = math.prod(MESHES[mesh_kind][0])
+    rules = make_rules(fsdp=cfg.fsdp, multi_pod=multi, seq_axis=seq_axis,
+                       kv_seq_shard=kv_seq_shard)
     t0 = time.time()
     try:
-        count = count_cell(cfg, info["kind"], info["global_batch"], info["seq_len"])
+        with fake_world(chips):
+            mesh = make_production_mesh(multi_pod=multi)
+            count = count_cell(cfg, info["kind"], info["global_batch"],
+                               info["seq_len"], mesh, rules, grad_compress)
         t_trace = time.time() - t0
     except Exception as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",

@@ -25,6 +25,18 @@ class H100Config:
     hbm_bandwidth: float = 3.35e12       # B/s
     hbm_bytes: float = 80e9              # device memory, B
     nvlink_bandwidth: float = 450e9      # B/s each way (900 GB/s both ways)
+    # the cluster the dry run's meshes span: HGX H100 nodes of 8 cards
+    # joined by NVLink, one 400 Gb/s NDR InfiniBand port (ConnectX-7) a
+    # card between nodes (data-sheet figures, not measurements)
+    cards_per_node: int = 8
+    internode_bandwidth: float = 50e9    # B/s each way a card
+
+    def link_bandwidth(self, ranks) -> float:
+        """The bandwidth a ring over ``ranks`` (global ranks, ``r //
+        cards_per_node`` its node) runs at: NVLink within one node, else
+        its slowest hop, a card's InfiniBand port."""
+        nodes = {r // self.cards_per_node for r in ranks}
+        return self.nvlink_bandwidth if len(nodes) <= 1 else self.internode_bandwidth
 
     def peak(self, precision: str) -> float:
         """Peak rate of products in ``precision``: the name of a model

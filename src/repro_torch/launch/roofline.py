@@ -11,9 +11,13 @@ Three terms per (arch x shape) cell, at one H100's constants
 The reference reads FLOPs and bytes from XLA's ``cost_analysis()`` of a
 compiled program; the port counts them over one eager step traced on the
 meta device (:func:`count_step`), and its peak memory with
-``torch.distributed._tools.mem_tracker.MemTracker``.  One card runs no
-collective, so a cell's collective term is 0.  The HLO collective parser
-(``collective_bytes_from_hlo``, with the ring factor)
+``torch.distributed._tools.mem_tracker.MemTracker``.  Over a mesh the
+step runs on DTensors: the counters see the ops each rank runs on its
+local blocks (FLOPs, bytes and memory a device, not the whole step's) and
+every collective it issues (``torch.ops._c10d_functional``, DTensor's
+all-to-all ``_dtensor.shard_dim_alltoall``, and the ``c10d`` point-to-point
+ops of the compressed ring), each with its group's size, its ranks and
+the bytes of its result, under the reference's ring factors
 
     all-reduce          2 (n-1)/n x bytes     (reduce-scatter + all-gather)
     all-gather            (n-1)/n x bytes     (bytes = gathered output)
@@ -21,7 +25,9 @@ collective, so a cell's collective term is 0.  The HLO collective parser
     all-to-all            (n-1)/n x bytes
     collective-permute          1 x bytes
 
-is the reference's, kept for the multi-card placement to come.
+at the bandwidth of the group's links (:meth:`H100Config.link_bandwidth`).
+On one card no collective runs and the term is 0.  The reference's HLO
+parser (``collective_bytes_from_hlo``) is kept beside it.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import time
 from typing import Dict
 
 import torch
+from torch._guards import active_fake_mode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -209,34 +216,122 @@ def _distinct_bytes(t: torch.Tensor) -> int:
     return n
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank; any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def storage_bytes(tree) -> int:
-    """Bytes of the distinct storages of the tensors in ``tree``."""
+    """Bytes of the distinct storages of the tensors in ``tree`` (this
+    rank's blocks of DTensors)."""
     seen = {}
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             seen[st._cdata] = st.nbytes()
     return sum(seen.values())
 
 
-class _OpCounter(TorchDispatchMode):
-    """FLOPs by precision, bytes and devices of every op dispatched under it."""
+#: collective ops a traced step issues -> the reference's HLO op name
+_COLLECTIVE_OPS = {
+    "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::all_reduce_": "all-reduce",
+    "_c10d_functional::all_gather_into_tensor": "all-gather",
+    "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional::all_to_all_single": "all-to-all",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
+    "c10d::allreduce_": "all-reduce",
+    "c10d::allgather_": "all-gather",
+    "c10d::_allgather_base_": "all-gather",
+    "c10d::reduce_scatter_": "reduce-scatter",
+    "c10d::_reduce_scatter_base_": "reduce-scatter",
+    "c10d::alltoall_base_": "all-to-all",
+    "c10d::send": "collective-permute",
+}
 
-    def __init__(self):
+
+def _group_ranks(args) -> list:
+    """Global ranks of the process group a collective op names (by group
+    name or as a ProcessGroup argument)."""
+    from torch.distributed.distributed_c10d import (
+        _resolve_process_group, get_process_group_ranks,
+    )
+
+    for a in args:
+        if isinstance(a, str):
+            try:
+                pg = _resolve_process_group(a)
+            except (ValueError, RuntimeError, KeyError):
+                continue
+            return get_process_group_ranks(pg)
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(
+                a._type().qualified_name()):
+            a = torch.distributed.ProcessGroup.unbox(a)
+        if isinstance(a, torch.distributed.ProcessGroup):
+            return get_process_group_ranks(a)
+    raise ValueError("a collective op without a process group argument: "
+                     f"{[type(a).__name__ for a in args]}")
+
+
+class _OpCounter(TorchDispatchMode):
+    """FLOPs by precision, bytes and devices of every op dispatched under
+    it, and the collectives.  On a DTensor op it lets DTensor run first
+    (returns ``NotImplemented``), so it counts the local ops each rank runs
+    and the collectives DTensor inserts, as ``CommDebugMode`` does."""
+
+    def __init__(self, hw: H100Config = H100):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self.registry = flop_registry
+        self.hw = hw
         self.flops = collections.Counter()
         self.bytes = 0
         self.devices = set()
+        self.coll_bytes = collections.Counter()
+        self.coll_counts = collections.Counter()
+        self.coll_time = 0.0
+        self.fake_mode = None
+
+    def __enter__(self):
+        # ops under another fake mode than the one at entry are DTensor's
+        # shape propagation, not the step's (MemTracker's rule)
+        self.fake_mode = active_fake_mode()
+        return super().__enter__()
+
+    def _collective(self, op: str, args, out) -> None:
+        ranks = _group_ranks(args)
+        if op == "collective-permute":
+            res = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+        else:
+            res = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        n_bytes = sum(t.numel() * t.element_size() for t in res)
+        self.coll_bytes[op] += n_bytes
+        self.coll_counts[op] += 1
+        self.coll_time += (n_bytes * _ring_factor(op, len(ranks))
+                           / self.hw.link_bandwidth(ranks))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if active_fake_mode() is not self.fake_mode:
+            return out      # DTensor's sharding propagation on fake tensors
+        coll = _COLLECTIVE_OPS.get(func._schema.name)
+        if coll is not None:
+            self._collective(coll, args, out)
+        if func.namespace in ("_c10d_functional", "c10d", "_dtensor"):
+            return out          # a collective (or its wait) is not HBM traffic
         ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        self.devices.update(t.device.type for t in ins + outs if t.numel())
+        # host integer tensors are DTensor's mesh bookkeeping, not the step's
+        self.devices.update(t.device.type for t in ins + outs if t.numel() and (
+            t.is_floating_point() or t.device.type != "cpu"))
         packet = func._overloadpacket
         if packet in self.registry:
             precision = _OP_PRECISION.get(func._schema.name) or str(
@@ -265,7 +360,11 @@ class StepCount:
     batch, caches) tracked from before the trace.  ``devices``: the device
     types of every tensor with elements that the trace touched (an empty
     tensor holds no data: torch 2.11's activation checkpointing makes one
-    on the CPU as a placeholder)."""
+    on the CPU as a placeholder; integer tensors on the CPU are not
+    counted either: over a mesh DTensor's sharding propagation builds its
+    meshes of ranks from such tensors).  Over a mesh every count is one rank's:
+    its local ops and blocks, and ``collectives``, the collectives it
+    issued with their ring time."""
     flops_by_dtype: Dict[str, int]
     hbm_bytes: int
     peak_bytes: int
@@ -273,6 +372,9 @@ class StepCount:
     output_bytes: int
     devices: frozenset
     seconds: float
+    collectives: CollectiveStats = dataclasses.field(
+        default_factory=lambda: CollectiveStats(
+            {c: 0 for c in _COLLECTIVES}, {c: 0 for c in _COLLECTIVES}, 0.0))
 
     @property
     def flops(self) -> int:
@@ -287,7 +389,7 @@ def count_step(step, *args):
 
     t0 = time.perf_counter()
     tracker, counter = MemTracker(), _OpCounter()
-    tracker.track_external(*[t for t in tree_leaves(args)
+    tracker.track_external(*[_local(t) for t in tree_leaves(args)
                              if isinstance(t, torch.Tensor)])
     with tracker, counter:
         out = step(*args)
@@ -300,14 +402,18 @@ def count_step(step, *args):
         output_bytes=storage_bytes(out),
         devices=frozenset(counter.devices),
         seconds=time.perf_counter() - t0,
+        collectives=CollectiveStats(
+            {c: counter.coll_bytes[c] for c in _COLLECTIVES},
+            {c: counter.coll_counts[c] for c in _COLLECTIVES},
+            counter.coll_time),
     )
     return out, count
 
 
 def analyze(count: StepCount, *, chips: int = 1) -> RooflineTerms:
-    """The three terms of a counted step on one card (no collective)."""
-    coll = CollectiveStats({c: 0 for c in _COLLECTIVES},
-                           {c: 0 for c in _COLLECTIVES}, 0.0)
+    """The three terms of a counted step a device (the collective term is
+    0 where the step ran on one card)."""
+    coll = count.collectives
     return RooflineTerms(flops=float(count.flops), hbm_bytes=float(count.hbm_bytes),
                          collectives=coll, chips=chips,
                          flops_by_dtype={k: float(v)

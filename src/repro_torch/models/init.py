@@ -1,4 +1,5 @@
-"""Parameter shapes and initialization (the port of ``repro.models.init``).
+"""Parameter shapes, logical sharding axes and initialization (the port
+of ``repro.models.init``).
 
 ``init_params(cfg, generator, device)`` returns a plain dict tree of
 tensors in the reference's layout: ``groups[g][t][name]`` with a leading
@@ -8,13 +9,14 @@ rules are the reference's (``_init_leaf``); the random numbers come from a
 same weights, hand the JAX tree over as NumPy arrays
 (:func:`repro_torch.convert.lm_params_from_numpy`).
 
-The shape tables of the three block types (``attn``, ``mamba2``,
-``rglru``, each with its dense or MoE feed-forward leaves ``ffn.*``) are
-copied; they also give :func:`param_count`.  The reference's
-``param_specs`` (logical sharding axes) is not ported: the port runs on
-one card.  The port's :func:`param_specs` is the shape tree of
-``init_params`` instead (the reference's ``jax.eval_shape(init_params)``),
-which the dry run traces with.
+The tables of the three block types (``attn``, ``mamba2``, ``rglru``, each
+with its dense or MoE feed-forward leaves ``ffn.*``) are the reference's:
+each leaf's shape and the logical name of each of its axes.  They give
+:func:`param_specs` (the same tree as ``init_params`` with tuples of
+logical axis names as leaves, which ``distributed.sharding`` resolves to a
+mesh's specs), :func:`param_shapes` (the tree of ``init_params`` on the
+meta device: the reference's ``jax.eval_shape(init_params)``, which the
+dry run traces with) and :func:`param_count`.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# per-block parameter shapes (the reference's tables, without the specs)
+# per-block parameter tables: {leaf name: (shape, logical axes)}
 # ---------------------------------------------------------------------------
 
 def _ffn_shapes(cfg: ModelConfig):
@@ -51,34 +53,41 @@ def _ffn_shapes(cfg: ModelConfig):
     if cfg.moe is not None:
         e, fe = cfg.moe.n_experts, cfg.moe.d_ff
         return {
-            "router": (d, e),
-            "w_gate": (e, d, fe),
-            "w_up": (e, d, fe),
-            "w_down": (e, fe, d),
+            "router": ((d, e), (None, "expert")),
+            "w_gate": ((e, d, fe), ("expert", "embed", "expert_ff")),
+            "w_up": ((e, d, fe), ("expert", "embed", "expert_ff")),
+            "w_down": ((e, fe, d), ("expert", "expert_ff", "embed")),
         }
     if cfg.act == "swiglu":
-        return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
-    return {"w_up": (d, f), "w_down": (f, d)}
+        return {
+            "w_gate": ((d, f), ("embed", "mlp")),
+            "w_up": ((d, f), ("embed", "mlp")),
+            "w_down": ((f, d), ("mlp", "embed")),
+        }
+    return {
+        "w_up": ((d, f), ("embed", "mlp")),
+        "w_down": ((f, d), ("mlp", "embed")),
+    }
 
 
 def _attn_shapes(cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     sh = {
-        "ln1": (d,),
-        "wq": (d, hq * hd),
-        "wk": (d, hkv * hd),
-        "wv": (d, hkv * hd),
-        "wo": (hq * hd, d),
-        "ln2": (d,),
+        "ln1": ((d,), (None,)),
+        "wq": ((d, hq * hd), ("embed", "heads")),
+        "wk": ((d, hkv * hd), ("embed", "heads")),
+        "wv": ((d, hkv * hd), ("embed", "heads")),
+        "wo": ((hq * hd, d), ("heads", "embed")),
+        "ln2": ((d,), (None,)),
     }
     if cfg.qkv_bias:
-        sh["bq"] = (hq * hd,)
-        sh["bk"] = (hkv * hd,)
-        sh["bv"] = (hkv * hd,)
+        sh["bq"] = ((hq * hd,), ("heads",))
+        sh["bk"] = ((hkv * hd,), ("heads",))
+        sh["bv"] = ((hkv * hd,), ("heads",))
     if cfg.qk_norm:
-        sh["q_norm"] = (hd,)
-        sh["k_norm"] = (hd,)
+        sh["q_norm"] = ((hd,), (None,))
+        sh["k_norm"] = ((hd,), (None,))
     for k, v in _ffn_shapes(cfg).items():
         sh[f"ffn.{k}"] = v
     return sh
@@ -93,15 +102,15 @@ def _mamba2_shapes(cfg: ModelConfig):
     conv_dim = d_in + 2 * g * n
     proj_out = 2 * d_in + 2 * g * n + h
     return {
-        "ln": (d,),
-        "in_proj": (d, proj_out),
-        "conv_w": (conv_dim, s.d_conv),
-        "conv_b": (conv_dim,),
-        "A_log": (h,),
-        "D_skip": (h,),
-        "dt_bias": (h,),
-        "gn": (d_in,),
-        "out_proj": (d_in, d),
+        "ln": ((d,), (None,)),
+        "in_proj": ((d, proj_out), ("embed", "heads")),
+        "conv_w": ((conv_dim, s.d_conv), ("heads", None)),
+        "conv_b": ((conv_dim,), ("heads",)),
+        "A_log": ((h,), (None,)),
+        "D_skip": ((h,), (None,)),
+        "dt_bias": ((h,), (None,)),
+        "gn": ((d_in,), ("heads",)),
+        "out_proj": ((d_in, d), ("heads", "embed")),
     }
 
 
@@ -109,18 +118,18 @@ def _rglru_shapes(cfg: ModelConfig):
     d = cfg.d_model
     r = cfg.rglru.d_rnn or d
     sh = {
-        "ln1": (d,),
-        "w_x": (d, r),
-        "w_g": (d, r),
-        "conv_w": (r, cfg.rglru.d_conv),
-        "conv_b": (r,),
-        "lam": (r,),
-        "w_a": (r,),
-        "b_a": (r,),
-        "w_i": (r,),
-        "b_i": (r,),
-        "w_out": (r, d),
-        "ln2": (d,),
+        "ln1": ((d,), (None,)),
+        "w_x": ((d, r), ("embed", "heads")),
+        "w_g": ((d, r), ("embed", "heads")),
+        "conv_w": ((r, cfg.rglru.d_conv), ("heads", None)),
+        "conv_b": ((r,), ("heads",)),
+        "lam": ((r,), ("heads",)),
+        "w_a": ((r,), ("heads",)),        # diag recurrence-gate weight
+        "b_a": ((r,), ("heads",)),
+        "w_i": ((r,), ("heads",)),        # diag input-gate weight
+        "b_i": ((r,), ("heads",)),
+        "w_out": ((r, d), ("heads", "embed")),
+        "ln2": ((d,), (None,)),
     }
     for k, v in _ffn_shapes(cfg).items():
         sh[f"ffn.{k}"] = v
@@ -132,7 +141,7 @@ _BLOCK_SHAPES = {"attn": _attn_shapes, "mamba2": _mamba2_shapes, "rglru": _rglru
 
 def block_shapes(cfg: ModelConfig, btype: str) -> dict:
     """{leaf name: shape} of one block of type ``btype`` (no layers axis)."""
-    return _BLOCK_SHAPES[btype](cfg)
+    return {k: shape for k, (shape, _axes) in _BLOCK_SHAPES[btype](cfg).items()}
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -204,7 +213,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return tree_to(params, dev)
 
 
-def param_specs(cfg: ModelConfig, device="meta") -> dict:
+def param_specs(cfg: ModelConfig) -> dict:
+    """Same tree as :func:`init_params`, leaves = logical-axis tuples."""
+    specs = {"tok_embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    specs["groups"] = [
+        [{name: ("layers",) + axes
+          for name, (_shape, axes) in _BLOCK_SHAPES[bt](cfg).items()}
+         for bt in types]
+        for types, _repeat in group_layers(cfg)
+    ]
+    return specs
+
+
+def param_shapes(cfg: ModelConfig, device="meta") -> dict:
     """The tree of :func:`init_params` (keys, shapes and dtypes) with
     nothing drawn: uninitialized tensors on ``device``, by default the meta
     device, which allocates nothing.  The reference's

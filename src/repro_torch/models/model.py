@@ -6,9 +6,16 @@ port loops over them in Python and stacks the new caches back into the
 reference's tree (``caches[g][t][name]`` with a leading ``layers`` axis).
 In train mode each layer's body runs under activation checkpointing when
 ``cfg.remat`` is set (the reference's ``jax.checkpoint`` of its scan body)
-and ends in the bf16 gradient barrier when ``cfg.grad_bf16`` is set.  The
-reference's ``constrain`` (a sharding constraint, the identity without a
-mesh) is dropped.
+and ends in the bf16 gradient barrier when ``cfg.grad_bf16`` is set.
+
+Over a mesh the same code runs on DTensor trees
+(:mod:`repro_torch.distributed.sharding`), with the reference's
+``constrain`` pins on the embedded sequence and the logits, and one more
+on the residual stream after every block (the reference leaves that to
+GSPMD's propagation; DTensor chooses op by op).  The cross
+entropy over logits that split the vocabulary over ranks is the
+vocabulary-parallel one (:func:`_nll_terms`): each rank reduces its block
+of the vocabulary, and only (B, S) maxima and sums cross ranks.
 Every float32 product runs in full float32: a call refuses to run on the
 card while TF32 is on for matrix products
 (:func:`repro_torch.device.require_full_f32`).
@@ -20,7 +27,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import require_full_f32, resolve_device
-from .blocks import block_forward, rms_norm
+from ..distributed.sharding import constrain, resolve_partial
+from .blocks import _grad_placements, _pad, block_forward, rms_norm
 from .config import ModelConfig
 from .init import group_layers, torch_dtype
 from ..tree import leaves, unflatten_like
@@ -78,6 +86,12 @@ def _run_groups(params, cfg: ModelConfig, x, *, mode, pos, caches, cache_len):
                     bt, lp[ti], x, cfg,
                     mode=mode, pos=pos, cache=c, cache_len=cache_len,
                 )
+                # the residual stream between blocks as it enters the first
+                # (the identity outside a sharding context): DTensor picks
+                # each op's layout by the least redistribution, and left
+                # alone splits the model axis over d_model, then gathers
+                # whole weight matrices to meet it
+                x = constrain(x, ("batch", "seq", None))
                 if cfg.grad_bf16 and train:
                     x = _BF16GradBarrier.apply(x)
                 new_lc.append(nc)
@@ -105,17 +119,61 @@ def _embed(params, cfg: ModelConfig, batch):
         x = torch.as_tensor(batch["embeds"], device=dev).to(torch_dtype(cfg))
         return x, batch.get("labels")
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x = params["tok_embed"][tokens.long()]
+    x = _embed_rows(params["tok_embed"], tokens.long())
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = torch.as_tensor(batch["patch_embeds"], device=dev).to(x.dtype)
         x = torch.cat([pe, x], dim=1)
     return x, batch.get("labels")
 
 
+def _embed_rows(table, tokens):
+    """``table[tokens]``.  On DTensors on each rank's block: the tokens as
+    the batch splits them, the table's rows as the vocabulary splits them
+    (a rank looks up the tokens it holds rows of and the ranks' rows are
+    summed), its columns as the embedding splits them where the batch does
+    not use that mesh axis (else made whole there, as FSDP gathers a
+    weight before its use)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tokens = resolve_partial(tokens)
+    t_lay, k_lay, out = [], [], []
+    v_split, v_index = 1, 0
+    for i, (pt, pk) in enumerate(zip(table.placements, tokens.placements)):
+        if pk.is_shard(0):
+            t_lay.append(Replicate()), k_lay.append(Shard(0)), out.append(Shard(0))
+        elif pt.is_shard(0):
+            t_lay.append(Shard(0)), k_lay.append(Replicate()), out.append(Partial())
+            v_split, v_index = v_split * mesh.size(i), v_index * mesh.size(i) + \
+                mesh.get_local_rank(i)
+        elif pt.is_shard(1):
+            t_lay.append(Shard(1)), k_lay.append(Replicate()), out.append(Shard(2))
+        else:
+            t_lay.append(Replicate()), k_lay.append(Replicate()), out.append(Replicate())
+    v0 = v_index * (table.shape[0] // v_split)
+
+    def rows(tab, tok):
+        j = tok - v0
+        hit = (j >= 0) & (j < tab.shape[0])
+        got = tab[torch.where(hit, j, 0)]
+        return torch.where(hit[..., None], got, 0) if v_split > 1 else got
+
+    x = local_map(rows, out, in_placements=(t_lay, k_lay),
+                  in_grad_placements=(_grad_placements(t_lay, out), k_lay),
+                  device_mesh=mesh)(table.redistribute(mesh, t_lay),
+                                    tokens.redistribute(mesh, k_lay))
+    return resolve_partial(x)
+
+
 def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return constrain(x @ head, ("batch", None, "vocab"))
 
 
 def _next_token_labels(cfg: ModelConfig, batch, x):
@@ -125,10 +183,19 @@ def _next_token_labels(cfg: ModelConfig, batch, x):
     if batch.get("labels") is not None:
         return torch.as_tensor(batch["labels"], device=x.device)
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
-    labels = F.pad(tokens[:, 1:], (0, 1), value=-100)
+    labels = _pad(tokens[:, 1:], (0, 1), value=-100)
     if cfg.frontend == "vision":
-        labels = F.pad(labels, (x.shape[1] - tokens.shape[1], 0), value=-100)
+        labels = _pad(labels, (x.shape[1] - tokens.shape[1], 0), value=-100)
     return labels
+
+
+def label_count(cfg: ModelConfig, batch) -> torch.Tensor:
+    """How many positions of ``batch`` carry a label: the divisor of
+    :func:`train_loss` (before its ``max(., 1)``)."""
+    if batch.get("labels") is not None:
+        return (torch.as_tensor(batch["labels"]) >= 0).sum()
+    tokens = torch.as_tensor(batch["tokens"])
+    return (tokens[:, 1:] >= 0).sum()
 
 
 def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -139,6 +206,7 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     ``cfg.loss_chunk`` dividing S, the sums run over sequence chunks in
     order (only a (B, chunk, vocab) block of f32 logits at a time)."""
     x, _ = _embed(params, cfg, batch)
+    x = constrain(x, ("batch", "seq", None))
     x, _ = _run_groups(params, cfg, x, mode="train", pos=0, caches=None,
                        cache_len=0)
     labels = _next_token_labels(cfg, batch, x)
@@ -147,8 +215,7 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
         logits = _logits(params, cfg, x_blk).to(f32)
         mask = labels_blk >= 0
         safe = torch.where(mask, labels_blk, 0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        lse, gold = _nll_terms(logits, safe)
         return ((lse - gold) * mask).sum(), mask.sum()
 
     s = x.shape[1]
@@ -164,6 +231,61 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     return nll / torch.clamp(cnt, min=1)
 
 
+def _vocab_mesh_dim(logits):
+    """The mesh dim that splits a DTensor's vocabulary (last) axis, or None
+    (a tensor, or a DTensor whose vocabulary is whole on every rank)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        return None
+    dims = [i for i, p in enumerate(logits.placements)
+            if p.is_shard(logits.ndim - 1)]
+    if len(dims) > 1:
+        raise ValueError(f"logits split their vocabulary over mesh dims {dims}")
+    return dims[0] if dims else None
+
+
+def _nll_terms(logits, safe):
+    """(``logsumexp`` over the vocabulary, the gold logit) a position.
+
+    On logits whose vocabulary is split over a mesh dim, each rank works on
+    its block: the maximum (a ``max`` all-reduce, no gradient: the log-sum
+    does not depend on it), the sum of ``exp(logit - max)`` (a sum
+    all-reduce), and the gold logit where this rank holds the label (zero
+    elsewhere, a sum all-reduce).  ``torch.logsumexp``'s formula, max plus
+    the log of the shifted sum, in another summation order."""
+    logits = resolve_partial(logits)
+    vdim = _vocab_mesh_dim(logits)
+    if vdim is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse, torch.gather(logits, -1, safe[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    lay = [p if p.is_shard() else Replicate() for p in logits.placements]
+    logits = logits.redistribute(mesh, lay)
+    # (B, S) terms: the logits' batch and sequence splits, whole over vdim
+    row = [Replicate() if i == vdim else p for i, p in enumerate(lay)]
+    safe = safe.redistribute(mesh, row)
+    part = lambda op: [Partial(op) if i == vdim else p for i, p in enumerate(row)]
+    v0 = mesh.get_local_rank(vdim) * (logits.shape[-1] // mesh.size(vdim))
+
+    gmax = local_map(lambda lg: lg.detach().amax(dim=-1), part("max"),
+                     device_mesh=mesh)(logits).redistribute(mesh, row)
+    sumexp = local_map(lambda lg, m: torch.exp(lg - m[..., None]).sum(dim=-1),
+                       part("sum"), device_mesh=mesh)(logits, gmax)
+
+    def gold_block(lg, sf):
+        j = sf - v0
+        here = (j >= 0) & (j < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.where(here, j, 0)[..., None])[..., 0]
+        return torch.where(here, g, 0.0)
+
+    gold = local_map(gold_block, part("sum"), device_mesh=mesh)(logits, safe)
+    return gmax + torch.log(sumexp), gold
+
+
 def value_and_grad(params, cfg: ModelConfig, batch):
     """(loss, grads): ``train_loss`` and its gradient with respect to every
     leaf of ``params``, as a tree of the same structure (detached).  A leaf
@@ -173,8 +295,19 @@ def value_and_grad(params, cfg: ModelConfig, batch):
     with torch.enable_grad():
         loss = train_loss(unflatten_like(params, flat), cfg, batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
+             for p, g in zip(flat, grads)]
     return loss.detach(), unflatten_like(params, grads)
+
+
+def _like_param(g, p):
+    """A DTensor gradient in its parameter's placements (a gradient may come
+    back with sums pending over the ranks that split the batch)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +354,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int):
     """Full-sequence forward; returns (last-token logits, caches).  Runs on
     the device the parameters lie on."""
     x, _ = _embed(params, cfg, batch)
+    x = constrain(x, ("batch", "seq", None))
     x, caches = _run_groups(params, cfg, x, mode="prefill", pos=0,
                             caches=None, cache_len=cache_len)
     logits = _logits(params, cfg, x[:, -1:, :])

@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed import exchange
+from ..distributed.sharding import map_blocks
 from ..tree import tree_map
 
 
@@ -69,8 +70,18 @@ def _map_compressed(node):
 
 def _shared_scale(g: torch.Tensor, group) -> torch.Tensor:
     """The largest of the group's per-tensor scales (the reference's
-    ``pmax``), so dequantization is conservative and the sum consistent."""
-    return exchange.all_reduce(_scale(g), group, dist.ReduceOp.MAX)
+    ``pmax``), so dequantization is conservative and the sum consistent.
+    A DTensor's scale is its whole tensor's (the reference's leaf inside
+    ``shard_map`` is whole over the automatic axes)."""
+    scale = _scale(g)
+    if _is_dtensor(scale):
+        scale = scale.full_tensor()
+    return exchange.all_reduce(scale, group, dist.ReduceOp.MAX)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def psum_compressed(grads, group=None):
@@ -97,12 +108,16 @@ def ring_psum_int8(grads, group=None, size: int | None = None):
 
     def one(g):
         scale = _shared_scale(g, group)
-        q = _quantize(g, scale, torch.int8)
-        total = q.to(torch.float32)
-        msg = q
-        for _ in range(n - 1):
-            msg = exchange.ring_shift(msg, group)   # int8 on the wire
-            total = total + msg.to(torch.float32)
-        return (total * scale).to(g.dtype)
+
+        def block(x):
+            q = _quantize(x, scale, torch.int8)
+            total = q.to(torch.float32)
+            msg = q
+            for _ in range(n - 1):
+                msg = exchange.ring_shift(msg, group)   # int8 on the wire
+                total = total + msg.to(torch.float32)
+            return (total * scale).to(x.dtype)
+
+        return map_blocks(block, g)
 
     return tree_map(one, grads)

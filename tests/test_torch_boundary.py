@@ -66,7 +66,7 @@ def test_import_leaves_jax_and_repro_out():
         "          'checkpoint.manager', 'launch.steps', 'launch.train', 'tree',\n"
         "          'launch.shapes', 'launch.roofline', 'launch.dryrun',\n"
         "          'launch.hardware', 'launch.mesh', 'distributed.exchange',\n"
-        "          'optim.compression'):\n"
+        "          'optim.compression', 'distributed.staged'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

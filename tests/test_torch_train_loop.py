@@ -29,7 +29,6 @@ from repro.models import model as jax_model
 from repro.optim import adamw as jax_adamw
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, smoke_config
-from repro_torch.distributed import MULTI_CARD_ITEM
 from repro_torch.launch import steps, train
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -229,14 +228,48 @@ def test_three_train_steps_match_the_reference(arch):
         jp, js = jp2, js2
 
 
-def test_mesh_bound_step_functions_refuse_naming_the_queue_item():
-    for fn in (steps.param_shardings, steps.opt_shardings, steps.batch_shardings,
-               steps.cache_shardings, steps.make_train_step_compressed):
-        with pytest.raises(NotImplementedError) as err:
-            fn(smoke_config("llama3.2-3b"), None, None)
-        assert MULTI_CARD_ITEM in str(err.value) and fn.__name__ in str(err.value)
-    # the item that waits is the language models' half of the placement
-    assert "make_train_step_compressed" in MULTI_CARD_ITEM
+def test_mesh_step_functions_return_the_references_trees():
+    """The four sharding trees of llama3.2-3b's smoke config on a 2 x 2
+    mesh give the reference's ``spec_for_shape`` leaf for leaf (the
+    reference's own trees need devices; its rules read only the mesh's
+    sizes), and ``make_train_step_compressed`` builds a step over a
+    ``(pod, data, model)`` mesh and refuses a mesh without pods."""
+    import repro.distributed.sharding as RS
+    from repro.launch import shapes as jax_shapes
+    from repro_torch.distributed import sharding as PS
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    class Sizes:
+        shape = {"data": 2, "model": 2}
+
+    cfg, jcfg = configs("llama3.2-3b")
+    rules = PS.make_rules()
+    spec = lambda axes, shape: tuple(RS.spec_for_shape(axes, rules, shape, Sizes()))
+    flat = lambda tree: [x for x in jax.tree.leaves(
+        tree, is_leaf=lambda x: isinstance(x, (tuple, PS.NamedSharding)))]
+    p_sh = steps.param_shardings(cfg, Sizes.shape, rules)
+    shapes = jax.tree.leaves(jax.eval_shape(
+        lambda: jax_init.init_params(jcfg, jax.random.PRNGKey(0))))
+    want = [spec(a, s.shape) for a, s in zip(flat(jax_init.param_specs(jcfg)), shapes)]
+    assert [tuple(s.spec) for s in flat(p_sh)] == want
+    o_sh = steps.opt_shardings(cfg, Sizes.shape, rules)
+    assert tuple(o_sh.step.spec) == () and o_sh.m == o_sh.v == p_sh
+    b_sh = steps.batch_shardings(cfg, Sizes.shape, rules, "train_4k")
+    assert {k: tuple(v.spec) for k, v in b_sh.items()} == {
+        k: spec(steps.BATCH_AXES[k], v.shape)
+        for k, v in jax_shapes.batch_specs(jcfg, "train_4k").items()}
+    c_sh = steps.cache_shardings(cfg, Sizes.shape, rules, "decode_32k")
+    c_want = [spec(a, s.shape) for a, s in zip(
+        flat(jax_steps.cache_logical_specs(jcfg)),
+        jax.tree.leaves(jax_shapes.cache_specs(jcfg, "decode_32k")))]
+    assert [tuple(s.spec) for s in flat(c_sh)] == c_want
+    with fake_world(4):
+        step = steps.make_train_step_compressed(
+            cfg, adamw.AdamWConfig(), make_mesh((2, 1, 2), ("pod", "data", "model")))
+        assert callable(step)
+        with pytest.raises(ValueError, match="first axis is pod"):
+            steps.make_train_step_compressed(
+                cfg, adamw.AdamWConfig(), make_mesh((2, 2), ("data", "model")))
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
