@@ -69,9 +69,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ... import trace
 from ...device import resolve_device
 from ...distributed import exchange
 from ...distributed import sharding as shardlib
+from ...kernels import launch_counts
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
 from ..layer import LIFParams, SNNNetwork
@@ -322,6 +324,14 @@ _SERIAL_UPDATES = {
 }
 
 
+def _host_bytes(src, dst: torch.Tensor) -> int:
+    """Bytes of ``dst`` taken from the host: all of them, unless ``src``
+    was already a tensor on ``dst``'s device."""
+    if isinstance(src, torch.Tensor) and src.device == dst.device:
+        return 0
+    return dst.element_size() * dst.numel()
+
+
 def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
     """(T, B, 1) 0/1 mask of the live steps of each batch slot, or None."""
     if valid_steps is None:
@@ -383,41 +393,46 @@ def _scan_network(
             (batch, plan.pop_sizes[s]), dtype=torch.float32,
             device=spikes.device,
         )
-    for t in range(T):
-        x_t = spikes[t]
-        pop_out = [None] * len(plan.pop_sizes)
-        for p, (a, b) in zip(plan.input_pops, plan.input_slices):
-            row = x_t if full_input else x_t[:, a:b]
-            pop_out[p] = row if halo is None else halo.input_row(p, row)
-        for p in plan.update_order:
-            k = vz_slot[p]
-            if halo is None or halo.owns(p):
-                edges = []
-                for ei in plan.in_edges[p]:
-                    meta = metas[ei]
-                    src = plan.proj_src[ei]
-                    x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
-                    if meta.paradigm == "serial":
-                        upd, shift = _SERIAL_UPDATES[forms[ei]](
-                            *params[ei], x, t, delay_range=meta.delay_range,
-                            n_target=meta.n_target, complete=complete[ei],
-                        )
-                        edges.append(RingEdge(proj_states[ei], upd, shift))
-                    else:
-                        _, i_e = parallel_project(
-                            *params[ei], proj_states[ei], x, t,
-                            complete=complete[ei],
-                        )
-                        edges.append(CurrentEdge(i_e))
-                # delivery, sum, fire, int8 carry and f32 spike row: one
-                # launch
-                pop_out[p] = lif_step(
-                    edges, pop_v[k], pop_z[k], outs[k][t], t,
-                    alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
-                )
-            if halo is not None:
-                pop_out[p] = halo.exchange(p, pop_out[p], None, outs[k][t])
-        prev_out = pop_out
+    with trace.span("executor.scan", steps=T) as scan:
+        launched = sum(launch_counts().values()) if scan else 0
+        for t in range(T):
+            x_t = spikes[t]
+            pop_out = [None] * len(plan.pop_sizes)
+            for p, (a, b) in zip(plan.input_pops, plan.input_slices):
+                row = x_t if full_input else x_t[:, a:b]
+                pop_out[p] = row if halo is None else halo.input_row(p, row)
+            for p in plan.update_order:
+                k = vz_slot[p]
+                if halo is None or halo.owns(p):
+                    edges = []
+                    for ei in plan.in_edges[p]:
+                        meta = metas[ei]
+                        src = plan.proj_src[ei]
+                        x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
+                        if meta.paradigm == "serial":
+                            upd, shift = _SERIAL_UPDATES[forms[ei]](
+                                *params[ei], x, t, delay_range=meta.delay_range,
+                                n_target=meta.n_target, complete=complete[ei],
+                            )
+                            edges.append(RingEdge(proj_states[ei], upd, shift))
+                        else:
+                            _, i_e = parallel_project(
+                                *params[ei], proj_states[ei], x, t,
+                                complete=complete[ei],
+                            )
+                            edges.append(CurrentEdge(i_e))
+                    # delivery, sum, fire, int8 carry and f32 spike row: one
+                    # launch
+                    pop_out[p] = lif_step(
+                        edges, pop_v[k], pop_z[k], outs[k][t], t,
+                        alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
+                    )
+                if halo is not None:
+                    pop_out[p] = halo.exchange(p, pop_out[p], None, outs[k][t])
+            prev_out = pop_out
+        if scan:
+            trace.count("kernel_launches",
+                        sum(launch_counts().values()) - launched)
     if live is not None:
         outs = [z * live for z in outs]
     return outs
@@ -1141,21 +1156,30 @@ class NetworkExecutable:
 
     # -- launch paths --------------------------------------------------------
     def _inputs(self, spikes, valid_steps):
-        spikes = torch.as_tensor(spikes, dtype=torch.float32, device=self.device)
-        if spikes.ndim != 3 or spikes.shape[2] != self.n_input:
-            raise ValueError(
-                f"spikes must be (T, B, {self.n_input}); got {tuple(spikes.shape)}"
-            )
-        if valid_steps is not None:
-            valid_steps = torch.as_tensor(
-                valid_steps, dtype=torch.int32, device=self.device
-            )
-            if valid_steps.shape != (spikes.shape[1],):
+        """The launch's inputs as tensors on the device; counts
+        ``h2d_bytes``, the bytes of each taken from a host array."""
+        with trace.span("executor.inputs") as sp:
+            host = spikes
+            spikes = torch.as_tensor(spikes, dtype=torch.float32, device=self.device)
+            if spikes.ndim != 3 or spikes.shape[2] != self.n_input:
                 raise ValueError(
-                    f"valid_steps must be ({spikes.shape[1]},); "
-                    f"got {tuple(valid_steps.shape)}"
+                    f"spikes must be (T, B, {self.n_input}); got {tuple(spikes.shape)}"
                 )
-        return spikes, valid_steps
+            if sp:
+                trace.count("h2d_bytes", _host_bytes(host, spikes))
+            if valid_steps is not None:
+                host = valid_steps
+                valid_steps = torch.as_tensor(
+                    valid_steps, dtype=torch.int32, device=self.device
+                )
+                if valid_steps.shape != (spikes.shape[1],):
+                    raise ValueError(
+                        f"valid_steps must be ({spikes.shape[1]},); "
+                        f"got {tuple(valid_steps.shape)}"
+                    )
+                if sp:
+                    trace.count("h2d_bytes", _host_bytes(host, valid_steps))
+            return spikes, valid_steps
 
     def run_device(
         self,
@@ -1203,21 +1227,24 @@ class NetworkExecutable:
 
     def _launch(self, path, spikes, valid_steps, serial_form):
         spikes, valid_steps = self._inputs(spikes, valid_steps)
-        forms = self.serial_forms(spikes.shape[1], serial_form)
-        self._record_forms(path, spikes.shape[1], forms)
-        self._entries.add((path, forms, None))
-        shape = tuple(spikes.shape[:2])
-        spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
-        states = _init_graph_carry(
-            self.plan, self.metas, spikes.shape[1], self.device
-        )
-        params = self._params_for(forms)
-        halo = self._halo()
+        with trace.span("executor.prepare"):
+            forms = self.serial_forms(spikes.shape[1], serial_form)
+            self._record_forms(path, spikes.shape[1], forms)
+            self._entries.add((path, forms, None))
+            shape = tuple(spikes.shape[:2])
+            spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
+            states = _init_graph_carry(
+                self.plan, self.metas, spikes.shape[1], self.device
+            )
+            params = self._params_for(forms)
+            halo = self._halo()
+            completions = self._completions(forms)
         outs = _scan_network(
             self.plan, self.metas, forms, params, states, spikes,
-            valid_steps, self._completions(forms), halo,
+            valid_steps, completions, halo,
         )
-        return self._checked(self._whole_trains(outs, group, halo, shape))
+        with trace.span("executor.check"):
+            return self._checked(self._whole_trains(outs, group, halo, shape))
 
     def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
         """Set :attr:`last_check` from the per-population trains and

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
+from .. import trace
 from ..core.layer import SNNNetwork
 from ..core.switching import CompileReport
 from ..distributed.fault_tolerance import RestartPolicy
@@ -245,19 +246,23 @@ class ServingEngine:
         with a :class:`ShedReply`, requests served late count toward
         ``deadline_miss_rate``.
         """
-        if model not in self.pool.models():
-            raise UnknownModel(
-                f"model {model!r} not registered; have {self.pool.models()}"
+        with trace.span("engine.submit", model=model) as sp:
+            if model not in self.pool.models():
+                raise UnknownModel(
+                    f"model {model!r} not registered; have {self.pool.models()}"
+                )
+            width = self.scheduler.model_input(model)
+            if np.ndim(spikes) != 2 or np.shape(spikes)[1] > width:
+                raise ValueError(
+                    f"request must be (steps, n_in <= {width}) for model "
+                    f"{model!r}; got {np.shape(spikes)}"
+                )
+            req = self.queue.submit(
+                spikes, model=model, priority=priority, deadline_ms=deadline_ms
             )
-        width = self.scheduler.model_input(model)
-        if np.ndim(spikes) != 2 or np.shape(spikes)[1] > width:
-            raise ValueError(
-                f"request must be (steps, n_in <= {width}) for model "
-                f"{model!r}; got {np.shape(spikes)}"
-            )
-        return self.queue.submit(
-            spikes, model=model, priority=priority, deadline_ms=deadline_ms
-        ).request_id
+            if sp:
+                sp.set(request_id=req.request_id, steps=req.steps)
+            return req.request_id
 
     # -- wave path -----------------------------------------------------------
     def drain(self) -> Dict[int, Reply]:
@@ -310,12 +315,18 @@ class ServingEngine:
         return served
 
     def _admit_pending(self, served: Dict[int, Reply]) -> None:
-        now = time.perf_counter()
-        for req in self.queue.pop_all():
-            if req.expired(now):
-                served[req.request_id] = self._shed(req, now)
-            else:
-                self.scheduler.admit(req)
+        pending = self.queue.pop_all()
+        if not pending:
+            return
+        with trace.span("engine.admit"):
+            now = time.perf_counter()
+            for req in pending:
+                if req.expired(now):
+                    served[req.request_id] = self._shed(req, now)
+                    trace.count("shed")
+                else:
+                    self.scheduler.admit(req)
+                    trace.count("admitted")
 
     # -- shedding ------------------------------------------------------------
     def _shed(self, req: SNNRequest, now: float) -> ShedReply:
@@ -332,14 +343,17 @@ class ServingEngine:
 
     # -- delivery ------------------------------------------------------------
     def _deliver(self, served: Dict[int, Reply]) -> None:
-        for rid, reply in served.items():
-            fut = self._futures.pop(rid, None)
-            if fut is not None:
-                self._resolve_future(fut, reply)
-            else:
-                self.results[rid] = reply
-        while len(self.results) > self.max_retained_results:
-            self.results.popitem(last=False)
+        if not served:
+            return
+        with trace.span("engine.deliver"):
+            for rid, reply in served.items():
+                fut = self._futures.pop(rid, None)
+                if fut is not None:
+                    self._resolve_future(fut, reply)
+                else:
+                    self.results[rid] = reply
+            while len(self.results) > self.max_retained_results:
+                self.results.popitem(last=False)
 
     @staticmethod
     def _resolve_future(fut: asyncio.Future, reply: Reply) -> None:
@@ -357,13 +371,20 @@ class ServingEngine:
     def _run_microbatch(self, mb: MicroBatch) -> Dict[int, Reply]:
         if mb.aged_out:
             self.metrics.record_ageout()
-        t_dispatch = time.perf_counter()
         # every launch runs under the supervisor: watchdog + retries +
         # path degradation behind circuit breakers + bisection +
         # output validation; each request comes back as trimmed trains
-        # or a typed FailedReply — never an unwound exception
-        replies = self.supervisor.run(mb)
-        t_complete = time.perf_counter()
+        # or a typed FailedReply — never an unwound exception.  The
+        # launch's span stamps dispatch and completion whether or not
+        # tracing is on; its id is the launch id its inner spans share.
+        with trace.timed("engine.launch") as launch:
+            if launch:
+                launch.set(
+                    launch_id=launch.id, model=mb.model, bucket=mb.key.steps,
+                    request_ids=[r.request_id for r in mb.requests],
+                )
+            replies = self.supervisor.run(mb)
+        t_dispatch, t_complete = launch.t0 / 1e9, launch.t1 / 1e9
         req_by_id = {req.request_id: req for req in mb.requests}
         records = []
         for rid, reply in replies.items():

@@ -230,6 +230,3 @@ class ServingMetrics:
         if supervisor is not None:
             out["supervisor"] = supervisor
         return out
-
-    #: Backwards-compatible alias for :meth:`snapshot`.
-    summary = snapshot

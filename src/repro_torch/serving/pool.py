@@ -36,6 +36,7 @@ from typing import Dict, Iterable, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.layer import SNNNetwork
 from ..core.runtime import (
     NetworkExecutable,
@@ -61,22 +62,26 @@ def host_arrays(outs) -> List[np.ndarray]:
     """
     copies: Dict[int, np.ndarray] = {}
     host = []
-    for z in outs:
-        if isinstance(z, torch.Tensor):
-            a = copies.get(id(z))
-            if a is None:
-                a = copies[id(z)] = z.detach().cpu().numpy()
-            host.append(a)
-        else:
-            host.append(np.asarray(z))
+    with trace.span("supervisor.host_copy") as sp:
+        for z in outs:
+            if isinstance(z, torch.Tensor):
+                a = copies.get(id(z))
+                if a is None:
+                    a = copies[id(z)] = z.detach().cpu().numpy()
+                    if sp:
+                        trace.count("d2h_bytes", a.nbytes)
+                host.append(a)
+            else:
+                host.append(np.asarray(z))
     return host
 
 
 def wait_for_device(exe: NetworkExecutable) -> None:
     """Return only after the card has finished everything the launch
     enqueued (a no-op on the CPU, where a launch runs to its end)."""
-    if exe.device.type == "cuda":
-        torch.cuda.synchronize(exe.device)
+    with trace.span("pool.sync"):
+        if exe.device.type == "cuda":
+            torch.cuda.synchronize(exe.device)
 
 
 @dataclasses.dataclass
@@ -293,8 +298,9 @@ class ExecutablePool:
 
     def _acquire(
         self, name: str, shape: Tuple[int, int, int], path: str
-    ) -> Tuple[PoolEntry, NetworkExecutable]:
-        """Touch the model, revive it if evicted, count ONE hit or miss.
+    ) -> Tuple[PoolEntry, NetworkExecutable, bool]:
+        """Touch the model, revive it if evicted, count ONE hit or miss
+        (the third item: True for a hit).
 
         This is the pool's single counting point: a cold revival inside
         :meth:`entry` re-lowers the model's programs *within this same
@@ -306,12 +312,13 @@ class ExecutablePool:
         """
         entry = self.entry(name)        # may revive cold (clears warm set)
         exe = entry.executable          # refreshes the warm set if rebuilt
-        if (shape, path) in entry.warm_shapes:
+        hit = (shape, path) in entry.warm_shapes
+        if hit:
             entry.bucket_hits += 1
         else:
             entry.bucket_misses += 1
             entry.warm_shapes.add((shape, path))
-        return entry, exe
+        return entry, exe, hit
 
     def run_microbatch(
         self,
@@ -349,32 +356,36 @@ class ExecutablePool:
             )
         if path not in ("fused", "batched"):
             raise ValueError(f"unknown launch path {path!r}")
-        if self.fault_injector is not None:
-            # pre-launch faults (lowering failure, device loss, stall)
-            # fire before the hit/miss counting point, like the real
-            # failures they simulate — a launch that never reached the
-            # device must not book a bucket hit
-            self.fault_injector.before_launch(micro_batch, path)
-        entry, exe = self._acquire(
-            name if name is not None else micro_batch.model,
-            micro_batch.key.shape, path,
-        )
-        launch = exe.run_batched if path == "batched" else exe.run_device
-        if path == "batched":
-            entry.batched_launches += 1
-        else:
-            entry.fused_launches += 1
-        outs = launch(
-            micro_batch.spikes,
-            valid_steps=micro_batch.valid_steps,
-        )
-        if block:
-            wait_for_device(exe)
-        self.last_launch_check = exe.last_check
-        if self.fault_injector is not None:
-            # post-launch corruption (NaN/Inf membrane, non-binary spikes)
-            # on host copies — device/cache buffers stay clean for retries
-            outs = self.fault_injector.after_launch(outs, micro_batch, path)
+        with trace.span("pool.run_microbatch", path=path) as sp:
+            if self.fault_injector is not None:
+                # pre-launch faults (lowering failure, device loss, stall)
+                # fire before the hit/miss counting point, like the real
+                # failures they simulate — a launch that never reached
+                # the device must not book a bucket hit
+                self.fault_injector.before_launch(micro_batch, path)
+            entry, exe, hit = self._acquire(
+                name if name is not None else micro_batch.model,
+                micro_batch.key.shape, path,
+            )
+            if sp:
+                sp.set(hit=hit)
+            launch = exe.run_batched if path == "batched" else exe.run_device
+            if path == "batched":
+                entry.batched_launches += 1
+            else:
+                entry.fused_launches += 1
+            outs = launch(
+                micro_batch.spikes,
+                valid_steps=micro_batch.valid_steps,
+            )
+            if block:
+                wait_for_device(exe)
+            self.last_launch_check = exe.last_check
+            if self.fault_injector is not None:
+                # post-launch corruption (NaN/Inf membrane, non-binary
+                # spikes) on host copies — device/cache buffers stay clean
+                # for retries
+                outs = self.fault_injector.after_launch(outs, micro_batch, path)
         return outs
 
     # -- counters ------------------------------------------------------------
@@ -414,16 +425,3 @@ class ExecutablePool:
     def relowerings(self) -> int:
         """Layer lowerings since the last register/warmup — steady state: 0."""
         return lowering_total() - self._lower_mark
-
-    def hit_rate(self, name: Optional[str] = None) -> Optional[float]:
-        if name is None:
-            hits, misses = self.bucket_hits, self.bucket_misses
-        else:
-            e = self._entries.get(name)
-            if e is None:
-                raise UnknownModel(
-                    f"model {name!r} not registered; have {self.models()}"
-                )
-            hits, misses = e.bucket_hits, e.bucket_misses
-        total = hits + misses
-        return hits / total if total else None

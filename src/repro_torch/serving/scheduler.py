@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from .queue import DEFAULT_MODEL, SNNRequest
 
 
@@ -277,12 +278,14 @@ class ShapeBucketingScheduler:
         if not candidates:
             return None
         bucket = min(candidates, key=OpenBucket.urgency)
-        if any(b is bucket for b in self._full):
-            self._full = [b for b in self._full if b is not bucket]
-        else:
-            self._open.pop((bucket.model, bucket.key))
-        mb = self._pad(bucket.key, bucket.requests, bucket.model)
-        mb.aged_out = bucket.free_slots > 0 and self._aged(bucket, now)
+        with trace.span("scheduler.pop", bucket_steps=bucket.key.steps,
+                        batch=bucket.key.batch, live=len(bucket.requests)):
+            if any(b is bucket for b in self._full):
+                self._full = [b for b in self._full if b is not bucket]
+            else:
+                self._open.pop((bucket.model, bucket.key))
+            mb = self._pad(bucket.key, bucket.requests, bucket.model)
+            mb.aged_out = bucket.free_slots > 0 and self._aged(bucket, now)
         return mb
 
     def open_requests(self) -> int:
@@ -317,12 +320,17 @@ def pad_microbatch(
     subsets at the *same* bucket shape, so recovery launches stay warm
     bucket hits instead of fresh compiles).
     """
-    spikes = np.zeros(key.shape, np.float32)
-    valid = np.zeros(key.batch, np.int32)
-    for b, req in enumerate(requests):
-        spikes[: req.steps, b, : req.n_in] = req.spikes
-        valid[b] = req.steps
-    return MicroBatch(
-        key=key, requests=requests, spikes=spikes, valid_steps=valid,
-        model=model,
-    )
+    with trace.span("scheduler.pad") as sp:
+        spikes = np.zeros(key.shape, np.float32)
+        valid = np.zeros(key.batch, np.int32)
+        for b, req in enumerate(requests):
+            spikes[: req.steps, b, : req.n_in] = req.spikes
+            valid[b] = req.steps
+        if sp:
+            # MicroBatch.real_request_steps and .padded_request_steps
+            trace.count("true_request_steps", int(valid.sum()))
+            trace.count("lane_steps", key.steps * key.batch)
+        return MicroBatch(
+            key=key, requests=requests, spikes=spikes, valid_steps=valid,
+            model=model,
+        )

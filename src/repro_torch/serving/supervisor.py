@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from .. import trace
 from ..core.runtime import OutputValidationError, validate_spike_outputs
 from ..distributed.fault_tolerance import (
     HeartbeatRegistry,
@@ -330,59 +331,34 @@ class LaunchSupervisor:
         :func:`validate_spike_outputs` pass runs on the materialized
         arrays.
         """
-        check = getattr(self.pool, "last_launch_check", None)
-        if check is not None and getattr(
-            self.pool, "fault_injector", None
-        ) is None:
-            # one read of the device flag (a CUDA tensor has no NumPy view)
-            return bool(check.item())
-        try:
-            validate_spike_outputs(
-                host_outs,
-                steps=mb.key.steps,
-                batch=mb.key.batch,
-                sizes=self._expected_sizes(mb.model),
-            )
-        except OutputValidationError:
-            return False
-        return True
+        with trace.span("supervisor.validate") as sp:
+            check = getattr(self.pool, "last_launch_check", None)
+            if check is not None and getattr(
+                self.pool, "fault_injector", None
+            ) is None:
+                if sp:
+                    trace.count("d2h_bytes", check.element_size() * check.numel())
+                # one read of the device flag (a CUDA tensor has no NumPy
+                # view)
+                return bool(check.item())
+            try:
+                validate_spike_outputs(
+                    host_outs,
+                    steps=mb.key.steps,
+                    batch=mb.key.batch,
+                    sizes=self._expected_sizes(mb.model),
+                )
+            except OutputValidationError:
+                return False
+            return True
 
     def _attempt_with_retries(self, mb: MicroBatch, path: str):
         """One launch with the retry policy; returns
         ``(host_outs | None, fault_kind | None, attempts)``."""
         attempt = 0
         while True:
-            self.counters["launch_attempts"] += 1
-            fault, host_outs = None, None
-            t0 = self.clock()
-            try:
-                outs = self.pool.run_microbatch(mb, path=path, block=True)
-            except Exception as exc:       # any launch failure is a fault
-                fault = getattr(exc, "kind", "error")
-            else:
-                elapsed = self.clock() - t0
-                # the device answered: that is the liveness signal the
-                # heartbeat registry tracks, and the wall-time sample the
-                # straggler detector smooths per (model, bucket)
-                self.heartbeats.beat(self.LAUNCH_HOST, self.clock())
-                sid = self._straggler_id(mb)
-                self.stragglers.record(sid, elapsed)
-                if sid in self.stragglers.stragglers():
-                    self.counters["straggler_flags"] += 1
-                if self.watchdog_s is not None and elapsed > self.watchdog_s:
-                    # stalled launch: the result may even be correct, but
-                    # a launch this late cannot be trusted (nor waited on
-                    # in the real preemptive case) — discard and retry
-                    fault = "stall"
-                    self.counters["watchdog_stalls"] += 1
-                else:
-                    host_outs = host_arrays(outs)
-                    if self.validate and not self._outputs_valid(
-                        mb, host_outs
-                    ):
-                        fault = "validation"
-                        self.counters["validation_failures"] += 1
-                        host_outs = None
+            with trace.span("supervisor.attempt", path=path, attempt=attempt):
+                fault, host_outs = self._attempt(mb, path)
             if fault is None:
                 return host_outs, None, attempt + 1
             if not self.policy.should_restart(attempt):
@@ -391,15 +367,46 @@ class LaunchSupervisor:
             attempt += 1
             self.counters["retries"] += 1
 
+    def _attempt(self, mb: MicroBatch, path: str):
+        """One launch, its host copy and its validation; returns
+        ``(fault_kind | None, host_outs | None)``."""
+        self.counters["launch_attempts"] += 1
+        t0 = self.clock()
+        try:
+            outs = self.pool.run_microbatch(mb, path=path, block=True)
+        except Exception as exc:       # any launch failure is a fault
+            return getattr(exc, "kind", "error"), None
+        elapsed = self.clock() - t0
+        # the device answered: that is the liveness signal the heartbeat
+        # registry tracks, and the wall-time sample the straggler detector
+        # smooths per (model, bucket)
+        self.heartbeats.beat(self.LAUNCH_HOST, self.clock())
+        sid = self._straggler_id(mb)
+        self.stragglers.record(sid, elapsed)
+        if sid in self.stragglers.stragglers():
+            self.counters["straggler_flags"] += 1
+        if self.watchdog_s is not None and elapsed > self.watchdog_s:
+            # stalled launch: the result may even be correct, but a launch
+            # this late cannot be trusted (nor waited on in the real
+            # preemptive case) — discard and retry
+            self.counters["watchdog_stalls"] += 1
+            return "stall", None
+        host_outs = host_arrays(outs)
+        if self.validate and not self._outputs_valid(mb, host_outs):
+            self.counters["validation_failures"] += 1
+            return "validation", None
+        return None, host_outs
+
     @staticmethod
     def _replies(
         requests: List[SNNRequest], host_outs: List[np.ndarray]
     ) -> Dict[int, SupervisedReply]:
         """Trim the padded launch outputs to every request's true shape."""
-        return {
-            req.request_id: [z[: req.steps, b] for z in host_outs]
-            for b, req in enumerate(requests)
-        }
+        with trace.span("supervisor.trim"):
+            return {
+                req.request_id: [z[: req.steps, b] for z in host_outs]
+                for b, req in enumerate(requests)
+            }
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> Dict:

@@ -262,10 +262,54 @@ def test_fault_tolerance_copy_passes_reference_cases(name, monkeypatch):
     getattr(test_fault_tolerance, name)()
 
 
+#: class attributes of the reference that the port drops: (class, name)
+DROPPED = {("ServingMetrics", "summary")}       # an alias nothing called
+
+
+class _Untraced(ast.NodeTransformer):
+    """The statements without the port's tracing (``repro_torch.trace``):
+    its import and ``trace.*`` calls go, each ``with trace.span(...)``
+    gives way to its body, and an ``if`` left empty goes too; and without
+    the class attributes in :data:`DROPPED`."""
+
+    @staticmethod
+    def _traces(call) -> bool:
+        return (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                and isinstance(call.func.value, ast.Name)
+                and call.func.value.id == "trace")
+
+    def visit_ImportFrom(self, node):
+        return None if [a.name for a in node.names] == ["trace"] else node
+
+    def visit_Expr(self, node):
+        return None if self._traces(node.value) else node
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(self._traces(item.context_expr) for item in node.items):
+            return node.body
+        return node
+
+    def visit_If(self, node):
+        self.generic_visit(node)
+        return node if node.body or node.orelse else None
+
+    def visit_ClassDef(self, node):
+        self.generic_visit(node)
+        node.body = [
+            st for st in node.body
+            if not (isinstance(st, ast.Assign) and any(
+                isinstance(t, ast.Name) and (node.name, t.id) in DROPPED
+                for t in st.targets))
+        ]
+        return node
+
+
 def _code(module):
-    """The module's statements with every docstring dropped and the
-    package name unified, as an AST dump."""
+    """The module's statements with every docstring and the port's tracing
+    dropped and the package name unified, as an AST dump."""
     tree = ast.parse(inspect.getsource(module).replace("repro_torch", "repro"))
+    tree = _Untraced().visit(tree)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)

@@ -1,0 +1,300 @@
+"""The port's tracer (``repro_torch.trace``) and its spans along the
+serving path, on the CPU: the span tree of a launch, the counters against
+hand counts, replies unchanged by tracing, the spans on a profiler's
+timeline, and the bounded buffer."""
+import gc
+import threading
+import tracemalloc
+from collections import deque
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as P
+import repro_torch.serving as PS
+from repro_torch import trace
+
+#: model -> (layer sizes, first paradigm)
+MODELS = {"default": ([12, 10, 6], "serial"), "b": ([9, 8], "parallel")}
+MICRO = 4
+
+
+@pytest.fixture
+def tracing():
+    """Tracing off and the buffer empty, before and after the test."""
+    was = trace.enabled()
+    trace.disable()
+    trace.clear()
+    yield trace
+    trace.disable()
+    trace.clear()
+    if was:
+        trace.enable()
+
+
+def _net(sizes, first, seed):
+    layers = []
+    for i in range(len(sizes) - 1):
+        layer = P.random_layer(sizes[i], sizes[i + 1], density=0.5,
+                               delay_range=2 + i, seed=seed + i)
+        layer.lif = P.LIFParams(alpha=0.5, v_th=64.0)
+        layers.append(layer)
+    net = P.SNNNetwork(layers=layers)
+    order = ("serial", "parallel") if first == "serial" else ("parallel", "serial")
+    report = P.CompileReport(layers=[
+        P.SwitchingCompiler(order[i % 2]).compile_layer(layer)
+        for i, layer in enumerate(net.layers)])
+    return net, report
+
+
+def _engine():
+    nets = {m: _net(sizes, first, 7 * k)
+            for k, (m, (sizes, first)) in enumerate(MODELS.items())}
+    eng = PS.ServingEngine(*nets["default"], micro_batch=MICRO,
+                           min_bucket_steps=4, device="cpu")
+    eng.register_model(*nets["b"], "b")
+    for m in MODELS:
+        eng.warmup([4, 8, 16], model=m)
+    return eng
+
+
+def _traffic(n=11, seed=3):
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        model = "b" if rng.random() < 0.35 else "default"
+        width = MODELS[model][0][0]
+        steps = int(rng.integers(2, 15))
+        x = (rng.random((steps, int(rng.integers(width // 2, width + 1)))) < 0.3)
+        reqs.append((model, x.astype(np.float32)))
+    return reqs
+
+
+def _serve(eng, reqs):
+    """Submit in bursts of three with a continuous step after each, then
+    drain; returns (request ids, replies)."""
+    rids, replies = [], {}
+    for i, (model, x) in enumerate(reqs):
+        rids.append(eng.submit(x, model=model))
+        if i % 3 == 2:
+            replies.update(eng.step_continuous())
+    replies.update(eng.drain())
+    return rids, replies
+
+
+def _launches_of(eng):
+    """Wrap the pool so each launch's micro-batch and outputs are kept."""
+    seen = []
+    run_mb = eng.pool.run_microbatch
+
+    def run_microbatch(mb, *a, **kw):
+        outs = run_mb(mb, *a, **kw)
+        seen.append((mb, outs))
+        return outs
+
+    eng.pool.run_microbatch = run_microbatch
+    return seen
+
+
+def test_off_records_nothing_and_span_is_the_shared_noop(tracing):
+    assert not trace.enabled()
+    assert trace.span("engine.submit", model="m") is trace.NOOP
+    assert not trace.NOOP
+    with trace.span("a") as sp:
+        assert sp is trace.NOOP
+        trace.count("n", 3)
+        sp.set(k=1)
+    t = trace.timed("engine.launch")
+    with t:
+        pass
+    assert not t and t.t1 >= t.t0 > 0          # stamped, not recorded
+
+    def loop():
+        for _ in range(2000):
+            with trace.span("x"):
+                trace.count("y", 1)
+
+    loop()
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        loop()
+        after = tracemalloc.get_traced_memory()[0]
+    finally:
+        tracemalloc.stop()
+    assert after - before < 1024             # nothing kept from 2000 calls
+    assert trace.records() == [] and trace.dropped() == 0
+
+
+def test_counts_go_to_the_innermost_span_and_stacks_are_per_thread(tracing):
+    trace.enable()
+    trace.count("lost", 1)                   # outside any span
+    with trace.span("outer", a=1):
+        trace.count("n", 2)
+        with trace.span("inner") as sp:
+            trace.count("n", 3)
+            trace.count("n", 4)
+            sp.set(b=2)
+    inner, outer = trace.records()
+    assert (inner.name, inner.counts, inner.attrs) == ("inner", {"n": 7}, {"b": 2})
+    assert (outer.name, outer.counts, outer.attrs) == ("outer", {"n": 2}, {"a": 1})
+    assert inner.parent == outer.id and inner.root == outer.root == outer.id
+    assert outer.parent is None and outer.t0 <= inner.t0 <= inner.t1 <= outer.t1
+
+    trace.clear()
+    go = threading.Barrier(2)
+
+    def work(k):
+        with trace.span(f"t{k}"):
+            go.wait(timeout=10)
+            with trace.span(f"t{k}.child"):
+                go.wait(timeout=10)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=10)
+        assert not th.is_alive()
+    by_name = {r.name: r for r in trace.records()}
+    for k in range(2):
+        assert by_name[f"t{k}.child"].parent == by_name[f"t{k}"].id
+        assert by_name[f"t{k}"].parent is None
+
+
+def test_the_buffer_drops_the_oldest_records_and_counts_them(tracing, monkeypatch):
+    monkeypatch.setattr(trace, "CAPACITY", 4)
+    monkeypatch.setattr(trace, "_records", deque(maxlen=4))
+    trace.enable()
+    for k in range(7):
+        with trace.span(f"s{k}"):
+            pass
+    assert [r.name for r in trace.records()] == ["s3", "s4", "s5", "s6"]
+    assert trace.dropped() == 3
+    trace.clear()
+    assert trace.records() == [] and trace.dropped() == 0
+
+
+#: a launch's spans, each with the name of its parent
+LAUNCH_TREE = {
+    "supervisor.attempt": "engine.launch",
+    "pool.run_microbatch": "supervisor.attempt",
+    "executor.inputs": "pool.run_microbatch",
+    "executor.prepare": "pool.run_microbatch",
+    "executor.scan": "pool.run_microbatch",
+    "executor.check": "pool.run_microbatch",
+    "pool.sync": "pool.run_microbatch",
+    "supervisor.host_copy": "supervisor.attempt",
+    "supervisor.validate": "supervisor.attempt",
+    "supervisor.trim": "engine.launch",
+}
+
+
+def test_an_engine_gives_the_span_tree_and_hand_counted_counters(tracing):
+    eng = _engine()
+    seen = _launches_of(eng)
+    reqs = _traffic()
+    trace.enable()
+    rids, replies = _serve(eng, reqs)
+    recs = trace.records()
+    assert trace.dropped() == 0 and sorted(replies) == sorted(rids)
+    by_id = {r.id: r for r in recs}
+
+    submits = [r for r in recs if r.name == "engine.submit"]
+    assert [s.attrs["request_id"] for s in submits] == rids
+    assert [(s.attrs["model"], s.attrs["steps"]) for s in submits] == [
+        (m, x.shape[0]) for m, x in reqs]
+    admits = [r for r in recs if r.name == "engine.admit"]
+    assert sum(a.counts.get("admitted", 0) for a in admits) == len(reqs)
+
+    launches = [r for r in recs if r.name == "engine.launch"]
+    assert len(launches) == len(seen) > 2
+    served = [rid for ln in launches for rid in ln.attrs["request_ids"]]
+    assert sorted(served) == sorted(rids)
+    for ln, (mb, outs) in zip(sorted(launches, key=lambda r: r.t0), seen):
+        assert ln.parent is None and ln.root == ln.id == ln.attrs["launch_id"]
+        assert ln.attrs["request_ids"] == [r.request_id for r in mb.requests]
+        tree = [r for r in recs if r.root == ln.id and r is not ln]
+        assert sorted(r.name for r in tree) == sorted(LAUNCH_TREE)
+        for r in tree:
+            assert by_id[r.parent].name == LAUNCH_TREE[r.name]
+            assert ln.t0 <= r.t0 <= r.t1 <= ln.t1
+        # counters against the micro-batch and the output tensors
+        counts = {}
+        for r in tree:
+            for k, v in (r.counts or {}).items():
+                counts[k] = counts.get(k, 0) + v
+        distinct = {id(z): z for z in outs}.values()
+        assert counts == {
+            "h2d_bytes": mb.spikes.nbytes + mb.valid_steps.nbytes,
+            "d2h_bytes": sum(z.numel() * z.element_size() for z in distinct) + 1,
+            "kernel_launches": 0,            # CPU tensors run the plain versions
+        }
+        scan = next(r for r in tree if r.name == "executor.scan")
+        assert scan.attrs["steps"] == mb.key.steps
+        pool = next(r for r in tree if r.name == "pool.run_microbatch")
+        assert pool.attrs == {"path": "batched" if len(mb.requests) == MICRO
+                              else "fused", "hit": True}
+        # the engine's dispatch and completion stamps are the span's own
+        for rec in eng.metrics.records:
+            if rec.request_id in ln.attrs["request_ids"]:
+                assert (rec.t_dispatch, rec.t_complete) == (ln.t0 / 1e9, ln.t1 / 1e9)
+
+    pads = [r for r in recs if r.name == "scheduler.pad"]
+    pops = [r for r in recs if r.name == "scheduler.pop"]
+    assert len(pads) == len(pops) == len(launches)
+    for pad, (mb, _) in zip(sorted(pads, key=lambda r: r.t0), seen):
+        assert by_id[pad.parent].name == "scheduler.pop"
+        assert by_id[pad.parent].attrs == {
+            "bucket_steps": mb.key.steps, "batch": mb.key.batch,
+            "live": len(mb.requests)}
+        assert pad.counts == {"true_request_steps": mb.real_request_steps,
+                              "lane_steps": mb.padded_request_steps}
+    assert sum(r.name == "engine.deliver" for r in recs) >= 1
+
+
+def test_replies_are_the_same_with_tracing_on_and_off(tracing):
+    reqs = _traffic(n=13, seed=5)
+    got = {}
+    for on in (False, True):
+        (trace.enable if on else trace.disable)()
+        rids, replies = _serve(_engine(), reqs)
+        got[on] = [replies[rid] for rid in rids]
+    assert trace.records()
+    for off, on in zip(got[False], got[True]):
+        assert len(off) == len(on)
+        for a, b in zip(off, on):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_each_span_under_a_profiler_has_its_event(tracing):
+    eng = _engine()
+    reqs = _traffic(n=8, seed=9)
+    trace.enable()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+    # a collection of a large heap that starts between a span's stamp and
+    # its event's lengthens one and not the other: none runs in the stretch
+    gc.collect()
+    gc.disable()
+    prof.start()
+    try:
+        _serve(eng, reqs)
+    finally:
+        prof.stop()
+        gc.enable()
+    recs = trace.records()
+    assert len(recs) > 20
+    events = {}
+    for e in prof.events():
+        if e.name.startswith("repro_torch."):
+            events.setdefault(e.name[len("repro_torch."):], []).append(e)
+    names = {r.name for r in recs}
+    assert set(events) == names
+    for name in names:
+        mine = sorted((r for r in recs if r.name == name), key=lambda r: r.t0)
+        theirs = sorted(events[name], key=lambda e: e.time_range.start)
+        assert len(mine) == len(theirs), name
+        for r, e in zip(mine, theirs):
+            us = (r.t1 - r.t0) / 1e3
+            assert abs(us - (e.time_range.end - e.time_range.start)) <= 50.0, name
