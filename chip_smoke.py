@@ -60,9 +60,12 @@ phases, none of which is caught and swallowed:
    and every launch is a bucket hit; both launch paths run (full buckets
    ``run_batched``, partial ``run_device``); the launch supervisor counts
    no fault; and ``lif_step``, ``spike_wdm_project`` and ``sparse_gather``
-   launch exactly as often as the launches' steps imply.  Requests a
-   second, p50/p95 latency and one supervised launch's host time beside
-   ``run_device``'s (in turns) are printed.
+   launch exactly as often as the launches' steps imply.  The pool
+   captures each warmed shape as one CUDA graph, and every launch must
+   replay one.  Requests a second, p50/p95 latency, one supervised
+   launch's host time beside ``run_device``'s, and the pool's launch of a
+   full micro-batch by graph replay beside the eager step loop (bitwise
+   equal; us a step, in turns) are printed.
 4. **Serve, temporal.**  The same micro-batches through ``run_temporal``
    (whole-train projections, the fused K4 once per iterative population
    for its whole fixed point, K3 for the sparse projections over all T·B
@@ -975,23 +978,45 @@ def hold_engine(net, reports, engine, traffic, rids, replay, launched, counts):
         require(counts[k] == n and n > 0,
                 f"engine: {counts[k]} {k} launches, the {len(launched)} launches "
                 f"imply {n}")
+    captures = sum(c["graph_captures"] for c in by.values())
+    replays = sum(c["graph_replays"] for c in by.values())
+    require(captures == sum(c["warm_shapes"] for c in by.values()),
+            f"engine: {captures} CUDA graphs captured for the warmed shapes "
+            f"{ {m: c['warm_shapes'] for m, c in by.items()} }")
+    require(replays == len(launched),
+            f"engine: {replays} of the {len(launched)} launches replayed a CUDA graph")
     require(counts["lif_update"] == counts["spike_wdm_matmul"] == 0,
             f"engine: standalone kernels launched: {counts}")
     print(f"engine: {n_held} replies ({len(rids)} Poisson, {len(replay)} replayed; "
           f"{n_shed} shed) bit-identical to the request alone on the card, the "
           f"port on the CPU and run_graph_reference; {len(launched)} launches "
           f"(batched {sum(c['batched_launches'] for c in by.values())}, fused "
-          f"{sum(c['fused_launches'] for c in by.values())}), hits "
+          f"{sum(c['fused_launches'] for c in by.values())}), CUDA graphs "
+          f"captured {captures}, replayed {replays}, hits "
           f"{st['bucket_hits']}, misses {st['bucket_misses']}, re-lowerings "
           f"{st['relowerings']}, supervisor faults 0; kernel launches {want} as "
           "the launches' steps imply")
 
 
+@contextlib.contextmanager
+def eager_loop(exe):
+    """Launches of ``exe`` run the eager step loop while inside, as before
+    its warmed shapes were captured as CUDA graphs."""
+    saved = exe._graphs
+    exe._graphs = {}
+    try:
+        yield
+    finally:
+        exe._graphs = saved
+
+
 def time_engine(net, reports, engine, traffic, stats, rps, card):
     """The engine's numbers on the card: requests a second and latency of
-    the Poisson pass; and one full micro-batch's launch through the
+    the Poisson pass; one full micro-batch's launch through the
     supervisor (run_batched, the wait for the card, the flag read and the
-    host copies) beside run_device alone on it with a sync, in turns."""
+    host copies) beside run_device alone on it with a sync, in turns; and
+    the pool's launch of it by CUDA-graph replay beside the eager step
+    loop, bitwise equal, in turns."""
     from repro_torch.core.runtime import network_executable
     from repro_torch.serving import BucketKey, SNNRequest, pad_microbatch
 
@@ -1037,6 +1062,28 @@ def time_engine(net, reports, engine, traffic, stats, rps, card):
           f"busy share {dev / ht:.3f}; run_device + sync {hd:.3f} ms ({hd_a:.3f}, "
           f"{hd_b:.3f}), host waits {waits_d}; the engine adds {ht - hd:+.3f} ms "
           f"({100 * (ht / hd - 1):+.1f}%)")
+
+    def launch_pool():
+        return engine.pool.run_microbatch(mb)
+
+    def launch_pool_eager():
+        with eager_loop(exe):
+            return engine.pool.run_microbatch(mb)
+
+    require(same_replies(launch_pool(), launch_pool_eager()),
+            "engine: the pool's replayed launch differs from the eager loop")
+    before = engine.pool.counters_by_model()["default"]["graph_replays"]
+    pr, (pr_a, pr_b), pe, (pe_a, pe_b) = in_turns(launch_pool, launch_pool_eager)
+    replays = engine.pool.counters_by_model()["default"]["graph_replays"] - before
+    require(replays == 26, f"engine: {replays} of the 26 replay-route launches "
+            "replayed a CUDA graph")
+    steps = mb.key.steps
+    print(f"engine timing [{card}]: the pool's launch of {len(reqs)} requests "
+          f"({steps} steps, {MICRO_BATCH} lanes) by CUDA-graph replay "
+          f"{pr / steps * 1e3:.2f} us a step ({pr:.3f} ms a launch: {pr_a:.3f}, "
+          f"{pr_b:.3f}; {replays} launches replayed), eager step loop "
+          f"{pe / steps * 1e3:.2f} us a step ({pe:.3f} ms: {pe_a:.3f}, {pe_b:.3f}); "
+          f"replay {100 * (pr / pe - 1):+.1f}%")
 
 
 def parallel_edge_ops(operands, ring):

@@ -43,6 +43,12 @@ exactly 0/1, so the casts are exact).
 The timestep ``t`` is a host integer and nothing in the loop reads a
 device value back: a launch enqueues its whole T-step run, and the
 all-0/1 output self-check stays on the device (:attr:`last_check`).
+So a launch of one shape is the same device work every time: once the
+serving pool has warmed a shape, :meth:`NetworkExecutable.capture_graph`
+records that work as one CUDA graph, and later launches of the shape copy
+their inputs into the graph's own buffers and replay it, instead of
+enqueuing every step from Python.  Graphs exist only on the card, and only
+for an executable that is not placed over several ranks.
 
 :meth:`NetworkExecutable.run_batched` is the serving engine's path for
 full micro-batches: the reference vmaps width-1 scans over the request
@@ -62,6 +68,7 @@ fixed-point pass; nothing else on that path syncs.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from functools import partial
 from typing import Dict, List, Optional, Tuple
 
@@ -73,7 +80,7 @@ from ... import trace
 from ...device import resolve_device
 from ...distributed import exchange
 from ...distributed import sharding as shardlib
-from ...kernels import launch_counts
+from ...kernels import add_launch_counts, launch_counts
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
 from ..layer import LIFParams, SNNNetwork
@@ -394,6 +401,9 @@ def _scan_network(
             device=spikes.device,
         )
     with trace.span("executor.scan", steps=T) as scan:
+        if scan:
+            scan.set(graph="capture" if spikes.is_cuda
+                     and torch.cuda.is_current_stream_capturing() else "eager")
         launched = sum(launch_counts().values()) if scan else 0
         for t in range(T):
             x_t = spikes[t]
@@ -595,6 +605,29 @@ def _temporal_network(
     return outs, aux
 
 
+def _all_binary(outs, device) -> torch.Tensor:
+    """Device bool: every spike entry of ``outs`` is exactly 0.0 or 1.0
+    (subsumes finiteness: NaN and Inf equal neither); never read back."""
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    for z in outs:
+        ok = ok & ((z == 0.0) | (z == 1.0)).all()
+    return ok
+
+
+@dataclasses.dataclass
+class _LaunchGraph:
+    """One launch shape captured as a CUDA graph: the buffers it reads, the
+    per-population trains and the flag it writes, and the kernel launches
+    of one replay (entry point -> launches)."""
+
+    graph: object                       # torch.cuda.CUDAGraph
+    spikes: torch.Tensor                # (T, B, n_input) f32
+    valid_steps: torch.Tensor | None    # (B,) i32
+    outs: Tuple[torch.Tensor, ...]
+    ok: torch.Tensor
+    launches: Dict[str, int]
+
+
 @dataclasses.dataclass
 class _MeshPlacement:
     """``shard(mesh=)``'s mesh, rules and this rank's coordinate."""
@@ -676,6 +709,13 @@ class NetworkExecutable:
         #: on the device after the loop and never read back by the launch,
         #: so checking it costs the caller one sync when it wants to know.
         self.last_check = None
+        #: Launches captured as CUDA graphs, keyed ``(forms, T, B,
+        #: masked)``; the keys run eagerly where a capture may follow,
+        #: which are the ones :meth:`capture_graph` captures; launches
+        #: that replayed a graph
+        self._graphs: Dict[Tuple, _LaunchGraph] = {}
+        self._eager_keys = set()
+        self.graph_replays = 0
 
     def jit_entries(self) -> int:
         """Distinct launch entries this handle has run.
@@ -1020,7 +1060,9 @@ class NetworkExecutable:
         return self
 
     def _reset_placement(self) -> None:
-        """Drop every operand and launch entry built against a placement."""
+        """Drop every operand, launch entry and graph built against a
+        placement."""
+        self.drop_graphs()
         self._mesh_pl = None
         self._assigned = None
         self._specs.clear()
@@ -1226,12 +1268,19 @@ class NetworkExecutable:
         return self._launch("vmap", spikes, valid_steps, serial_form)
 
     def _launch(self, path, spikes, valid_steps, serial_form):
+        if self._graphs:
+            key = self._graph_key(spikes, valid_steps, serial_form)
+            graph = self._graphs.get(key)
+            if graph is not None:
+                return self._replay(path, key[0], graph, spikes, valid_steps)
         spikes, valid_steps = self._inputs(spikes, valid_steps)
         with trace.span("executor.prepare"):
             forms = self.serial_forms(spikes.shape[1], serial_form)
             self._record_forms(path, spikes.shape[1], forms)
             self._entries.add((path, forms, None))
             shape = tuple(spikes.shape[:2])
+            if self._graphable():
+                self._eager_keys.add((forms, *shape, valid_steps is not None))
             spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
             states = _init_graph_carry(
                 self.plan, self.metas, spikes.shape[1], self.device
@@ -1249,17 +1298,129 @@ class NetworkExecutable:
     def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
         """Set :attr:`last_check` from the per-population trains and
         return the per-projection view."""
-        # output self-check on the device: every spike entry must be
-        # exactly 0.0 or 1.0 (subsumes finiteness — NaN and Inf equal
-        # neither), reduced to one bool tensor and never read back here
-        ok = torch.ones((), dtype=torch.bool, device=self.device)
-        for z in outs:
-            ok = ok & ((z == 0.0) | (z == 1.0)).all()
-        self.last_check = ok
-        # entry i = projection i's target population; fan-in entries
-        # alias the same tensor
+        self.last_check = _all_binary(outs, self.device)
+        return self._per_projection(outs)
+
+    def _per_projection(self, outs) -> Tuple[torch.Tensor, ...]:
+        """Entry i = projection i's target population's train; fan-in
+        entries alias the same tensor."""
         slot = {p: k for k, p in enumerate(self.plan.update_order)}
         return tuple(outs[slot[tgt]] for tgt in self.plan.proj_tgt)
+
+    # -- CUDA graphs ---------------------------------------------------------
+    def _graphable(self) -> bool:
+        """Whether a launch can be captured: on the card, with every
+        operand whole on this rank and no rank to exchange with."""
+        return (self.device.type == "cuda" and self._mesh_pl is None
+                and self._assigned is None)
+
+    def _graph_key(self, spikes, valid_steps, serial_form):
+        """The graph key of a launch of these inputs; None where their
+        shapes fit no graph (the eager launch then raises on them)."""
+        shape = tuple(np.shape(spikes))
+        if len(shape) != 3 or shape[2] != self.n_input:
+            return None
+        if valid_steps is not None and tuple(np.shape(valid_steps)) != shape[1:2]:
+            return None
+        return (self.serial_forms(shape[1], serial_form), shape[0], shape[1],
+                valid_steps is not None)
+
+    def capture_graph(self, steps: int, batch: int) -> int:
+        """Capture each launch of a ``(steps, batch, n_input)`` train that
+        has run eagerly and has no graph yet as one CUDA graph; returns how
+        many it captured.
+
+        The serving pool calls this for each shape it has marked warm.  A
+        launch is keyed by its forms and by whether it took
+        ``valid_steps``; its graph zeroes the carry, masks the input, runs
+        the step loop (:func:`_scan_network`), masks the output trains and
+        forms the all-0/1 flag, reading the train and the valid steps from
+        buffers of its own.  From then on :meth:`run_device` and
+        :meth:`run_batched` of that key copy their inputs there and replay
+        it (the two paths run the same loop, so they share it).  The eager
+        launch first loads the kernels and builds the form operands.
+        Nothing is captured off the card or under a placement over several
+        ranks.  A graph holds the operands' addresses and the LIF
+        constants: a rebuilt executable starts with none, and a placement
+        drops them.
+        """
+        keys = [k for k in self._eager_keys
+                if k[1:3] == (steps, batch) and k not in self._graphs]
+        for forms, _, _, masked in keys:
+            self._graphs[(forms, steps, batch, masked)] = self._capture(
+                forms, steps, batch, masked)
+        return len(keys)
+
+    def _capture(self, forms, steps, batch, masked) -> _LaunchGraph:
+        """One launch of ``forms`` at ``(steps, batch)`` recorded as a CUDA
+        graph on a side stream; the launches it holds are not counted."""
+        dev = self.device
+        spikes = torch.zeros((steps, batch, self.n_input), dtype=torch.float32,
+                             device=dev)
+        valid = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                 if masked else None)
+        params = self._params_for(forms)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = launch_counts()
+        # a collection inside the capture could free a dead executable's
+        # graph, whose destruction a capturing thread may not call
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    states = _init_graph_carry(self.plan, self.metas, batch, dev)
+                    outs = _scan_network(self.plan, self.metas, forms, params,
+                                         states, spikes, valid)
+                    ok = _all_binary(outs, dev)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+            # the wrappers counted launches that only each replay makes
+            launches = {k: n - before[k] for k, n in launch_counts().items()
+                        if n != before[k]}
+            add_launch_counts({k: -n for k, n in launches.items()})
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return _LaunchGraph(graph, spikes, valid, tuple(outs), ok, launches)
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph (and which shapes ran eagerly)."""
+        self._graphs.clear()
+        self._eager_keys.clear()
+
+    def _replay(self, path, forms, g: _LaunchGraph, spikes, valid_steps):
+        """A launch that replays ``g``: the inputs copied into its buffers
+        (the same copies and bytes as an eager launch's), the launch's
+        bookkeeping, and clones of what it wrote, so that a later replay
+        overwrites nothing a caller holds.  Waits for the card nowhere."""
+        with trace.span("executor.inputs") as sp:
+            g.spikes.copy_(torch.as_tensor(spikes))
+            if sp:
+                trace.count("h2d_bytes", _host_bytes(spikes, g.spikes))
+            if g.valid_steps is not None:
+                g.valid_steps.copy_(torch.as_tensor(valid_steps))
+                if sp:
+                    trace.count("h2d_bytes",
+                                _host_bytes(valid_steps, g.valid_steps))
+        steps, batch = g.spikes.shape[:2]
+        with trace.span("executor.prepare"):
+            self._record_forms(path, batch, forms)
+            self._entries.add((path, forms, None))
+        with trace.span("executor.scan", steps=steps) as scan:
+            g.graph.replay()
+            if scan:
+                scan.set(graph="replay")
+                trace.count("kernel_launches", sum(g.launches.values()))
+        add_launch_counts(g.launches)
+        self.graph_replays += 1
+        with trace.span("executor.check"):
+            self.last_check = g.ok.clone()
+            return self._per_projection([z.clone() for z in g.outs])
 
     def run_temporal(
         self,
@@ -1462,7 +1623,8 @@ def network_executable(
 
 
 def release_network_executable(report: CompileReport) -> int:
-    """Drop the report's fused executable and every per-layer lowering.
+    """Drop the report's fused executable (its CUDA graphs with it) and
+    every per-layer lowering.
 
     Returns the number of cache slots cleared.  The next
     ``network_executable`` call on this report re-lowers from the compiled
@@ -1470,6 +1632,7 @@ def release_network_executable(report: CompileReport) -> int:
     """
     cleared = 0
     if report.executable is not None:
+        report.executable.drop_graphs()
         report.executable = None
         cleared += 1
     for compiled in report.layers:

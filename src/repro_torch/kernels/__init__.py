@@ -37,6 +37,15 @@ def reset_launch_counts() -> None:
             mod.LAUNCHES[entry] = 0
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (entry point -> launches, negative to take away) to
+    the kernels' counts: a replayed CUDA graph launches its kernels without
+    their wrappers."""
+    for mod in KERNEL_OPS.values():
+        for entry in mod.LAUNCHES:
+            mod.LAUNCHES[entry] += counts.get(entry, 0)
+
+
 def build_kernels() -> None:
     """Compile every kernel source now (one ``nvcc`` each, in parallel)."""
     from . import _build
@@ -44,4 +53,5 @@ def build_kernels() -> None:
     _build.build_all(KERNEL_OPS)
 
 
-__all__ = ["KERNEL_OPS", "build_kernels", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNEL_OPS", "add_launch_counts", "build_kernels", "launch_counts",
+           "reset_launch_counts"]

@@ -12,6 +12,13 @@ a warm entry, a *miss* warms the shape for every later request.
 Hit/miss counters are kept both globally and split
 per model.
 
+On the card, each shape the pool marks warm is captured as one CUDA graph
+(:meth:`~repro_torch.core.runtime.NetworkExecutable.capture_graph`):
+:meth:`ExecutablePool.warmup` captures the shapes it warms, and a served
+miss is captured right after its eager launch.  Every later launch of the
+shape, on either path, replays the graph; ``graph_captures`` and
+``graph_replays`` count both per model.
+
 Multi-tenancy is bounded by an **LRU cap** (``max_models``): when more
 models are registered than the cap allows, the least-recently-used
 model's executable handles are released
@@ -102,6 +109,9 @@ class PoolEntry:
     bucket_misses: int = 0
     batched_launches: int = 0
     fused_launches: int = 0
+    #: Launch shapes captured as CUDA graphs, and launches that replayed one
+    graph_captures: int = 0
+    graph_replays: int = 0
     #: The NetworkExecutable instance the warm set was built against; a
     #: rebuild (network mutation or post-eviction revival) starts a fresh
     #: jit cache, so the warm set must reset with it or "hits" would hide
@@ -271,9 +281,10 @@ class ExecutablePool:
         cost model will pick for that batch under steady-state traffic
         (the entries are keyed by the form tuple) — sparse-storage models
         build their ELL operands here, never on the serving hot path, and
-        the kernels load on the card here too.  Returns the number
-        of shapes newly warmed.  After warmup those buckets are all hits
-        and :meth:`relowerings` stays at zero.
+        the kernels load on the card here too.  On the card each shape
+        is then captured as a CUDA graph, which later launches of it
+        replay.  Returns the number of shapes newly warmed.  After warmup
+        those buckets are all hits and :meth:`relowerings` stays at zero.
         """
         entry = self.entry(name)
         exe = entry.executable          # refreshes the warm set if rebuilt
@@ -293,6 +304,7 @@ class ExecutablePool:
                 entry.warm_shapes.add((key.shape, path))
                 fresh = True
             warmed += fresh
+            entry.graph_captures += exe.capture_graph(key.steps, key.batch)
         self._lower_mark = lowering_total()
         return warmed
 
@@ -345,7 +357,8 @@ class ExecutablePool:
         supervisor consumes to validate fault-free results without a
         host-side pass.  It reflects the *device* result: post-launch
         injector corruption happens on host copies and is caught by the
-        host validator instead.
+        host validator instead.  A hit on a captured shape replays its
+        CUDA graph; a miss runs eagerly and is captured right after.
         """
         self.last_launch_check = None
         if path is None:
@@ -374,12 +387,17 @@ class ExecutablePool:
                 entry.batched_launches += 1
             else:
                 entry.fused_launches += 1
+            replays = exe.graph_replays
             outs = launch(
                 micro_batch.spikes,
                 valid_steps=micro_batch.valid_steps,
             )
+            entry.graph_replays += exe.graph_replays - replays
             if block:
                 wait_for_device(exe)
+            if not hit:
+                key = micro_batch.key
+                entry.graph_captures += exe.capture_graph(key.steps, key.batch)
             self.last_launch_check = exe.last_check
             if self.fault_injector is not None:
                 # post-launch corruption (NaN/Inf membrane, non-binary
@@ -402,7 +420,9 @@ class ExecutablePool:
 
         ``jit_entries`` counts the distinct launch entries the model's live
         executable holds; ``evicted_warm_shapes`` is how much warmup the
-        model's last eviction destroyed (what a revival has to re-pay).
+        model's last eviction destroyed (what a revival has to re-pay);
+        ``graph_captures`` and ``graph_replays`` count the shapes captured
+        as CUDA graphs and the launches that replayed one (0 off the card).
         """
         return {
             name: {
@@ -417,6 +437,8 @@ class ExecutablePool:
                     if e.report.executable is not None else 0
                 ),
                 "evicted_warm_shapes": self._evicted_warm.get(name, 0),
+                "graph_captures": e.graph_captures,
+                "graph_replays": e.graph_replays,
             }
             for name, e in self._entries.items()
         }

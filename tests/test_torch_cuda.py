@@ -567,7 +567,17 @@ def test_engine_on_card_equals_engine_on_cpu(card):
     for rid in on_cpu:
         for a, b in zip(on_card[rid], on_cpu[rid]):
             np.testing.assert_array_equal(a, b)
-    assert gpu.pool.counters_by_model() == cpu.pool.counters_by_model()
+    # the card captured each warmed shape and every launch replayed one;
+    # the CPU captures nothing
+    on_card_by, on_cpu_by = (
+        e.pool.counters_by_model() for e in (gpu, cpu))
+    for name, c in on_card_by.items():
+        assert c.pop("graph_captures") == 3, name       # 8, 16 and 32 steps
+        assert c.pop("graph_replays") == (
+            c["batched_launches"] + c["fused_launches"]), name
+        assert on_cpu_by[name].pop("graph_captures") == 0
+        assert on_cpu_by[name].pop("graph_replays") == 0
+    assert on_card_by == on_cpu_by
     assert st["relowerings"] == 0 and st["bucket_misses"] == 0
     assert st["failed"] == 0 and st["shed"] == 0
     by = st["by_model"]
@@ -579,6 +589,212 @@ def test_engine_on_card_equals_engine_on_cpu(card):
         assert sup[k] == 0, k
     for k in ("lif_step", "spike_wdm_project", "sparse_gather"):
         assert counts[k] > 0, k
+
+
+def _gesture(policy):
+    net = feedforward_network([2048, 20, 4], density=0.0316, delay_range=1,
+                              seed=0)
+    for layer in net.layers:
+        layer.lif = LIFParams(alpha=0.5, v_th=64.0)
+    return net, SwitchingCompiler(policy).compile_network(net)
+
+
+#: a micro-batch of 8 lanes of a 32-step graph: full, empty and cut lanes
+GRAPH_VALID = [32, 0, 7, 32, 1, 12, 31, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["event", "sparse", "dense"])
+@pytest.mark.parametrize("policy", ["serial", "parallel", "ideal"])
+def test_replayed_launch_equals_eager_launch(card, policy, form):
+    """A launch captured as a CUDA graph replays the eager launch's bits,
+    kernel launches and flag, through run_device and run_batched alike
+    (one graph for both), from host inputs; a later replay leaves the
+    tensors an earlier one returned as they were."""
+    from repro_torch.core.runtime import NetworkExecutable
+
+    net, report = _gesture(policy)
+    exe = network_executable(net, report, device=card)
+    eager = NetworkExecutable.build(net, report, device=card)   # no graphs
+    rng = np.random.default_rng(3)
+    xs = [(rng.random((32, 8, 2048)) < 0.2).astype(np.float32) for _ in range(2)]
+    vs = np.asarray(GRAPH_VALID, np.int32)
+    assert exe.capture_graph(32, 8) == 0        # no launch of it has run
+    reset_launch_counts()
+    first = [z.clone() for z in exe.run_device(xs[0], valid_steps=vs,
+                                               serial_form=form)]
+    counts = launch_counts()
+    assert exe.capture_graph(32, 8) == 1
+    assert exe.capture_graph(32, 8) == 0        # captured once
+    assert launch_counts() == counts        # the capture launched nothing
+    got = {}
+    for i, path in enumerate(("run_device", "run_batched")):
+        reset_launch_counts()
+        got[path] = getattr(exe, path)(xs[i], valid_steps=vs, serial_form=form)
+        assert launch_counts() == counts
+        assert exe.last_check.dtype == torch.bool and bool(exe.last_check)
+        assert exe.graph_replays == i + 1
+    assert len(exe._graphs) == 1 and eager.graph_replays == 0
+    for i, path in enumerate(("run_device", "run_batched")):
+        want = eager.run_device(xs[i], valid_steps=vs, serial_form=form)
+        for a, b in zip(got[path], want):
+            assert torch.equal(a, b)
+            assert not a[:, 1].any() and not a[7:, 2].any()
+    for a, b in zip(got["run_device"], first):
+        assert torch.equal(a, b)
+    assert report.serial_forms[("vmap", 8)] == report.serial_forms[("fused", 8)]
+    cpu = NetworkExecutable.build(net, report, device="cpu").run_device(
+        xs[1], valid_steps=vs, serial_form=form)
+    for a, b in zip(got["run_batched"], cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_a_replay_waits_for_the_card_nowhere(card, masked):
+    """A replay from device inputs makes the host wait nowhere; the scan
+    span says what each launch did, and counts the replay's kernels."""
+    from repro_torch import trace
+
+    net, report = _gesture("ideal")
+    exe = network_executable(net, report, device=card)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor((rng.random((32, 8, 2048)) < 0.2).astype(np.float32),
+                        device=card)
+    vs = torch.as_tensor(GRAPH_VALID, dtype=torch.int32,
+                         device=card) if masked else None
+    was = trace.enabled()
+    trace.enable()
+    trace.clear()
+    try:
+        want = [z.clone() for z in exe.run_batched(x, valid_steps=vs)]
+        assert exe.capture_graph(32, 8) == 1
+        assert sync_count(lambda: exe.run_batched(x, valid_steps=vs)) == 0
+        got = exe.run_device(x, valid_steps=vs)
+        scans = [r for r in trace.records() if r.name == "executor.scan"]
+    finally:
+        trace.clear()
+        if not was:
+            trace.disable()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert exe.graph_replays == 2
+    assert [r.attrs["graph"] for r in scans] == ["eager", "capture", "replay",
+                                                 "replay"]
+    # the capture and each replay count the eager loop's kernel launches
+    n = {r.counts["kernel_launches"] for r in scans}
+    assert len(n) == 1 and n.pop() > 0
+
+
+@pytest.mark.cuda
+def test_the_pool_drops_graphs_on_eviction_and_recaptures_on_revival(card):
+    """The pool's warm-up captures the shape; an eviction drops the graphs
+    of the evicted executable, and the revived model's first launch (a
+    miss) runs eagerly and is captured, so the next one replays."""
+    from repro_torch.serving import (
+        BucketKey, ExecutablePool, SNNRequest, pad_microbatch,
+    )
+
+    net, reports = _engine_models()
+    pool = ExecutablePool(device=card, max_models=1)
+    pool.register(net, reports["ideal"], "a")
+    key = BucketKey(steps=16, n_in=2048, batch=8)
+    pool.warmup([key], name="a")
+    exe = pool.peek("a").report.executable
+    assert len(exe._graphs) == 1
+    rng = np.random.default_rng(6)
+    reqs = [SNNRequest(i, (rng.random((int(s), 2048)) < 0.2).astype(np.float32),
+                       0.0, model="a") for i, s in enumerate([16, 9, 3, 16, 12])]
+    mb = pad_microbatch(key, reqs, "a")
+    want = [z.cpu() for z in pool.run_microbatch(mb)]
+    assert pool.counters_by_model()["a"]["graph_replays"] == 1
+    pool.register(net, reports["parallel"], "b")      # evicts "a"
+    assert exe._graphs == {} and pool.peek("a").report.executable is None
+    pool.warmup([key], name="b")
+    for replays in (0, 1):
+        got = pool.run_microbatch(mb)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        c = pool.counters_by_model()["a"]
+        assert (c["graph_captures"], c["graph_replays"]) == (2, 1 + replays)
+        assert c["bucket_misses"] == 1
+    revived = pool.peek("a").report.executable
+    assert revived is not exe and len(revived._graphs) == 1
+    assert pool.counters_by_model()["b"]["graph_captures"] == 1
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_a_dead_graph_in_the_heap(card):
+    """No collection runs inside a capture: one that freed a dead
+    executable's graph there (a destruction a capturing thread may not
+    call) would void the capture."""
+    import gc
+    import weakref
+
+    from repro_torch.core.runtime import NetworkExecutable
+
+    net, report = _gesture("ideal")
+    rng = np.random.default_rng(8)
+    x = (rng.random((16, 8, 2048)) < 0.2).astype(np.float32)
+    vs = np.asarray(GRAPH_VALID, np.int32).clip(max=16)
+
+    def captured():
+        exe = NetworkExecutable.build(net, report, device=card)
+        exe.run_device(x, valid_steps=vs)
+        assert exe.capture_graph(16, 8) == 1
+        exe.cycle = exe               # only the collector can free it
+        return weakref.ref(exe)
+
+    dead = captured()
+    live = NetworkExecutable.build(net, report, device=card)
+    want = [z.clone() for z in live.run_device(x, valid_steps=vs)]
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)        # collect at every chance
+    try:
+        assert dead() is not None
+        assert live.capture_graph(16, 8) == 1
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert dead() is None
+    for a, b in zip(live.run_device(x, valid_steps=vs), want):
+        assert torch.equal(a, b)
+    assert live.graph_replays == 1
+
+
+@pytest.mark.cuda
+def test_a_placed_executable_never_captures(card, tmp_path):
+    """Under ``shard(mesh=)`` (a world of one rank with a mesh given) the
+    executable keeps to the eager loop and captures nothing; placing it
+    drops the graphs it had, and placing it back whole needs an eager
+    launch again before a capture."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shardlib
+
+    net, report = _gesture("ideal")
+    exe = network_executable(net, report, device=card)
+    rng = np.random.default_rng(7)
+    x = (rng.random((16, 8, 2048)) < 0.2).astype(np.float32)
+    vs = np.asarray(GRAPH_VALID, np.int32).clip(max=16)
+    want = [z.clone() for z in exe.run_device(x, valid_steps=vs)]
+    assert exe.capture_graph(16, 8) == 1
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        exe.shard(mesh=shardlib._device_mesh([0], (1, 1), ("data", "model")))
+        assert exe._graphs == {}
+        got = exe.run_device(x, valid_steps=vs)
+        assert exe.capture_graph(16, 8) == 0
+        assert exe.run_batched(x, valid_steps=vs) is not None
+        assert exe._graphs == {} and exe.graph_replays == 0
+        exe.shard(mesh=None)                      # whole again
+        assert exe.capture_graph(16, 8) == 0
+        exe.run_device(x, valid_steps=vs)
+        assert exe.capture_graph(16, 8) == 1
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 #: (G, Q, H, P, N): the reference's four TestSSDChunk shapes (G = 1), the

@@ -232,7 +232,8 @@ def test_an_engine_gives_the_span_tree_and_hand_counted_counters(tracing):
             "kernel_launches": 0,            # CPU tensors run the plain versions
         }
         scan = next(r for r in tree if r.name == "executor.scan")
-        assert scan.attrs["steps"] == mb.key.steps
+        # the CPU runs the eager loop: no CUDA graph off the card
+        assert scan.attrs == {"steps": mb.key.steps, "graph": "eager"}
         pool = next(r for r in tree if r.name == "pool.run_microbatch")
         assert pool.attrs == {"path": "batched" if len(mb.requests) == MICRO
                               else "fused", "hit": True}
