@@ -353,13 +353,18 @@ class SparseProjection:
                     f"sparse projection {self.name!r}: delay outside "
                     f"[1, {self.delay_range}]"
                 )
-            for r in range(self.n_source):
-                row = self.indices[self.indptr[r]:self.indptr[r + 1]]
-                if row.size > 1 and (np.diff(row) <= 0).any():
-                    raise ValueError(
-                        f"sparse projection {self.name!r}: row {r} columns "
-                        f"must be strictly increasing (sorted, no duplicates)"
-                    )
+            # each row's columns strictly increasing: every step between
+            # neighbours is positive, bar those from one row into the next
+            rising = np.diff(self.indices) > 0
+            starts = self.indptr[1:-1]
+            rising[starts[(starts > 0) & (starts < nnz)] - 1] = True
+            if not rising.all():
+                r = int(np.searchsorted(self.indptr, np.argmin(rising),
+                                        side="right")) - 1
+                raise ValueError(
+                    f"sparse projection {self.name!r}: row {r} columns "
+                    f"must be strictly increasing (sorted, no duplicates)"
+                )
         if not self.pre or not self.post:
             raise ValueError(
                 f"sparse projection {self.name!r} needs pre= and post= "

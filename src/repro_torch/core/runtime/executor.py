@@ -347,6 +347,12 @@ def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
     return (steps[:, None] < valid_steps[None, :]).to(spikes.dtype)[:, :, None]
 
 
+def _event_rows(metas, forms) -> int:
+    """Synaptic rows the event form sweeps a step (a lane): those of every
+    projection the launch runs in the event form."""
+    return sum(m.n_rows for m, f in zip(metas, forms) if f == "event")
+
+
 def _scan_network(
     plan: GraphPlan,
     metas: Tuple[LayerMeta, ...],
@@ -403,7 +409,8 @@ def _scan_network(
     with trace.span("executor.scan", steps=T) as scan:
         if scan:
             scan.set(graph="capture" if spikes.is_cuda
-                     and torch.cuda.is_current_stream_capturing() else "eager")
+                     and torch.cuda.is_current_stream_capturing() else "eager",
+                     event_rows=_event_rows(metas, forms))
         launched = sum(launch_counts().values()) if scan else 0
         for t in range(T):
             x_t = spikes[t]
@@ -1414,7 +1421,7 @@ class NetworkExecutable:
         with trace.span("executor.scan", steps=steps) as scan:
             g.graph.replay()
             if scan:
-                scan.set(graph="replay")
+                scan.set(graph="replay", event_rows=_event_rows(self.metas, forms))
                 trace.count("kernel_launches", sum(g.launches.values()))
         add_launch_counts(g.launches)
         self.graph_replays += 1

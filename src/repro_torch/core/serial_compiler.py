@@ -168,42 +168,31 @@ def compile_serial(
     Accepts dense :class:`SNNLayer` and CSR
     :class:`~repro_torch.core.layer.SparseProjection` storage alike; the sparse
     path assigns synapses to cells straight from the COO coordinates and
-    never materializes an ``(S, T)`` array.
+    never materializes an ``(S, T)`` array.  Its cost is linear in the
+    synapses: one stable sort groups them by cell, and each cell is then a
+    contiguous slice (row-major inside it, as the COO order was).
     """
     src_parts = equal_parts(layer.n_source, hw.max_neurons_per_pe)
     tgt_parts = equal_parts(layer.n_target, hw.max_neurons_per_pe)
     n_src_vertex = len(src_parts)
     src_edges = np.cumsum([0] + src_parts)
     tgt_edges = np.cumsum([0] + tgt_parts)
-
-    sparse = is_sparse(layer)
-    if sparse:
-        all_src, all_tgt, all_w, all_d = layer.coo()
-        # coo() is row-major => already sorted by (source, target), the
-        # order the dense path's nonzero() scan produces within each cell
-        cell_a = np.searchsorted(src_edges, all_src, side="right") - 1
-        cell_b = np.searchsorted(tgt_edges, all_tgt, side="right") - 1
+    cell_synapses = _sparse_cells if is_sparse(layer) else _dense_cells
 
     cells: List[SerialCell] = []
+    synapses = cell_synapses(layer, src_parts, tgt_parts, src_edges, tgt_edges)
     for a, sp in enumerate(src_parts):
-        s0 = int(src_edges[a])
+        # single projection => one master-population-table entry per
+        # source vertex; entry = (routing key, address-list offset, len).
+        # The other source vertices route to sibling cells; their entries
+        # exist in every PE's table (Table I counts n_source_vertex).  Every
+        # cell of a source part holds the same table.
+        mpt = np.zeros((n_src_vertex, 3), dtype=np.int64)
+        mpt[0] = (a, 0, sp)
+        mpt[1:, 0] = np.delete(np.arange(n_src_vertex), a)
         for b, tp in enumerate(tgt_parts):
-            t0 = int(tgt_edges[b])
-            if sparse:
-                sel = (cell_a == a) & (cell_b == b)
-                si = all_src[sel] - s0
-                ti = all_tgt[sel] - t0
-                w_sel, d_sel = all_w[sel], all_d[sel]
-                rows_per_src = np.bincount(si, minlength=sp)
-                cell_elems = sp * tp
-            else:
-                w = layer.weights[s0 : s0 + sp, t0 : t0 + tp]
-                d = layer.delays[s0 : s0 + sp, t0 : t0 + tp]
-                conn = w != 0.0
-                rows_per_src = conn.sum(axis=1)
-                si, ti = np.nonzero(conn)
-                w_sel, d_sel = w[si, ti], d[si, ti]
-                cell_elems = w.size
+            si, ti, w_sel, d_sel, cell_elems = next(synapses)
+            rows_per_src = np.bincount(si, minlength=sp)
 
             # one block per source neuron, rows sorted by (source, target)
             row_start = np.concatenate([[0], np.cumsum(rows_per_src)[:-1]])
@@ -212,14 +201,6 @@ def compile_serial(
             ).astype(np.int64)
 
             packed = pack_rows(w_sel, d_sel, ti)
-
-            # single projection => one master-population-table entry per
-            # source vertex; entry = (routing key, address-list offset, len)
-            mpt = np.array([[a, 0, sp]], dtype=np.int64)
-            for extra in range(n_src_vertex - 1):
-                # other source vertices route to sibling cells; their entries
-                # exist in every PE's table (Table I counts n_source_vertex).
-                mpt = np.vstack([mpt, [extra if extra < a else extra + 1, 0, 0]])
 
             overhead = serial_pe_overhead(tp, sp, layer.delay_range, n_src_vertex, hw=hw)
             matrix_bytes = 4.0 * packed.size
@@ -233,7 +214,8 @@ def compile_serial(
             )
             cells.append(
                 SerialCell(
-                    src_start=s0, src_size=sp, tgt_start=t0, tgt_size=tp,
+                    src_start=int(src_edges[a]), src_size=sp,
+                    tgt_start=int(tgt_edges[b]), tgt_size=tp,
                     master_population_table=mpt,
                     address_list=address_list,
                     synaptic_rows=packed,
@@ -248,3 +230,41 @@ def compile_serial(
         delay_range=layer.delay_range,
         cells=cells,
     )
+
+
+def _sparse_cells(layer, src_parts, tgt_parts, src_edges, tgt_edges):
+    """Each cell's ``(local source, local target, weight, delay, elements)``
+    in (source part, target part) order, from the COO synapses."""
+    src, tgt, w, d = layer.coo()
+    part_a = np.repeat(np.arange(len(src_parts)), src_parts)[src]
+    part_b = np.repeat(np.arange(len(tgt_parts)), tgt_parts)[tgt]
+    n_cells = len(src_parts) * len(tgt_parts)
+    cell = part_a * len(tgt_parts) + part_b
+    # a stable sort keeps coo()'s row-major order inside each cell, the
+    # order the dense path's nonzero() scan produces; 16-bit keys sort in
+    # linear time
+    order = np.argsort(cell.astype(np.uint16) if n_cells <= 1 << 16 else cell,
+                       kind="stable")
+    bounds = np.zeros(n_cells + 1, np.int64)
+    np.cumsum(np.bincount(cell, minlength=n_cells), out=bounds[1:])
+    src_local = (src - src_edges[part_a])[order]
+    tgt_local = (tgt - tgt_edges[part_b])[order]
+    w, d = w[order], d[order]
+    for a, sp in enumerate(src_parts):
+        for b, tp in enumerate(tgt_parts):
+            k = a * len(tgt_parts) + b
+            s = slice(bounds[k], bounds[k + 1])
+            yield src_local[s], tgt_local[s], w[s], d[s], sp * tp
+
+
+def _dense_cells(layer, src_parts, tgt_parts, src_edges, tgt_edges):
+    """Each cell's ``(local source, local target, weight, delay, elements)``
+    in (source part, target part) order, from the dense arrays."""
+    for a, sp in enumerate(src_parts):
+        s0 = int(src_edges[a])
+        for b, tp in enumerate(tgt_parts):
+            t0 = int(tgt_edges[b])
+            w = layer.weights[s0 : s0 + sp, t0 : t0 + tp]
+            d = layer.delays[s0 : s0 + sp, t0 : t0 + tp]
+            si, ti = np.nonzero(w != 0.0)
+            yield si, ti, w[si, ti], d[si, ti], w.size

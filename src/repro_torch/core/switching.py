@@ -27,14 +27,22 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import trace
 from .classifiers import AdaBoostClassifier, Classifier
 from .dataset import LABEL_PARALLEL, LABEL_SERIAL, ParadigmDataset
 from .hw import SpiNNaker2Config, DEFAULT_S2
-from .layer import SNNLayer, SNNNetwork
+from .layer import DENSE_ELEMENT_CAP, SNNLayer, SNNNetwork, is_sparse
 from .parallel_compiler import OptFlags, ParallelProgram, compile_parallel
 from .serial_compiler import SerialProgram, compile_serial
 
 PARADIGM_NAMES = {LABEL_SERIAL: "serial", LABEL_PARALLEL: "parallel"}
+
+
+def over_dense_cap(layer) -> bool:
+    """True for a CSR projection whose dense ``(S, T)`` form would exceed
+    :data:`~repro_torch.core.layer.DENSE_ELEMENT_CAP`: the parallel compiler
+    densifies, so such a projection can only compile serial."""
+    return is_sparse(layer) and layer.n_source * layer.n_target > DENSE_ELEMENT_CAP
 
 
 def _program_host_bytes(program) -> int:
@@ -65,6 +73,10 @@ class CompiledLayer:
     n_compilations: int      # 1 for prejudged, 2 for ideal
     host_bytes_peak: int     # artifacts resident while deciding
     compile_seconds: float
+    #: True where the projection compiled serial only because its dense
+    #: form is over the cap (:func:`over_dense_cap`), whatever the policy
+    #: would have chosen; ``predicted_label`` keeps the classifier's label.
+    forced: bool = False
     #: Lowered runtime executable (SerialExecutable | ParallelExecutable),
     #: attached lazily by :mod:`repro_torch.core.runtime.executor` so each program
     #: is lowered exactly once per report however many times it runs.
@@ -136,6 +148,11 @@ class CompileReport:
     def compile_seconds(self) -> float:
         return sum(l.compile_seconds for l in self.layers)
 
+    @property
+    def cap_fallbacks(self) -> int:
+        """Projections compiled serial because of the dense cap."""
+        return sum(l.forced for l in self.layers)
+
 
 def temporal_character(layer) -> dict:
     """Temporal-parallel eligibility features for the switching surface.
@@ -191,6 +208,26 @@ class SwitchingCompiler:
 
     # -- per-layer -----------------------------------------------------------
     def compile_layer(self, layer: SNNLayer) -> CompiledLayer:
+        """Compile one projection under the policy.  Under ``classifier``
+        and ``ideal`` a projection over the dense cap compiles serial
+        (``forced``); an explicit ``parallel`` policy still raises
+        :class:`~repro_torch.core.layer.DenseStorageError` on it."""
+        with trace.span("switching.compile_layer") as sp:
+            if sp:
+                sp.set(name=layer.name)
+            compiled = self._compile_layer(layer)
+            if sp:
+                prog = compiled.program
+                sp.set(paradigm=compiled.paradigm,
+                       predicted=compiled.predicted_label,
+                       forced=compiled.forced, n_synapses=layer.n_synapses,
+                       n_cells=len(prog.cells if isinstance(prog, SerialProgram)
+                                   else prog.slices))
+            if compiled.forced:
+                trace.count("switching.cap_fallbacks")
+        return compiled
+
+    def _compile_layer(self, layer: SNNLayer) -> CompiledLayer:
         t0 = time.perf_counter()
         if self.policy == "serial":
             prog = compile_serial(layer, hw=self.hw)
@@ -200,8 +237,12 @@ class SwitchingCompiler:
             prog = compile_parallel(layer, hw=self.hw, opts=self.opts)
             return self._wrap(layer, LABEL_PARALLEL, prog, 1,
                               _program_host_bytes(prog), t0)
+        forced = over_dense_cap(layer)
         if self.policy == "ideal":
             sp = compile_serial(layer, hw=self.hw)
+            if forced:
+                return self._wrap(layer, LABEL_SERIAL, sp, 1,
+                                  _program_host_bytes(sp), t0, forced=True)
             pp = compile_parallel(layer, hw=self.hw, opts=self.opts)
             peak = _program_host_bytes(sp) + _program_host_bytes(pp)
             label = (
@@ -211,23 +252,28 @@ class SwitchingCompiler:
             return self._wrap(layer, label, prog, 2, peak, t0)
         # classifier: prejudge from the 4 characters, compile once
         feats = layer.character().as_features()[None, :]
-        label = int(self.classifier.predict(feats)[0])
+        predicted = int(self.classifier.predict(feats)[0])
+        label = LABEL_SERIAL if forced else predicted
         if label == LABEL_PARALLEL:
             prog = compile_parallel(layer, hw=self.hw, opts=self.opts)
         else:
             prog = compile_serial(layer, hw=self.hw)
-        return self._wrap(layer, label, prog, 1, _program_host_bytes(prog), t0)
+        return self._wrap(layer, label, prog, 1, _program_host_bytes(prog), t0,
+                          predicted=predicted,
+                          forced=forced and predicted == LABEL_PARALLEL)
 
-    def _wrap(self, layer, label, prog, n_compiles, peak, t0) -> CompiledLayer:
+    def _wrap(self, layer, label, prog, n_compiles, peak, t0, *,
+              predicted=None, forced=False) -> CompiledLayer:
         return CompiledLayer(
             layer_name=layer.name,
             paradigm=PARADIGM_NAMES[label],
-            predicted_label=label,
+            predicted_label=label if predicted is None else predicted,
             program=prog,
             pe_count=prog.pe_count,
             n_compilations=n_compiles,
             host_bytes_peak=peak,
             compile_seconds=time.perf_counter() - t0,
+            forced=forced,
         )
 
     # -- whole network -------------------------------------------------------

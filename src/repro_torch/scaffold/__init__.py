@@ -1,4 +1,5 @@
-"""Procedural cerebellum-class network generator (the scale scenario).
+"""Network generators at scale: the procedural cerebellum-class scaffold
+and the Potjans-Diesmann cortical microcircuit (:mod:`.microcircuit`).
 
 SpiNNCer-style scaffold networks: named populations with biologically
 shaped sparse convergence, several independent external spike sources
@@ -17,15 +18,25 @@ from .cerebellum import (
     compile_scaffold,
     scaffold_policies,
 )
+from .microcircuit import (
+    MICROCIRCUIT,
+    Microcircuit,
+    MicrocircuitSpec,
+    build_microcircuit,
+)
 from .stimulus import poisson_stimulus
 
 __all__ = [
     "CEREBELLUM",
     "CerebellumSpec",
+    "MICROCIRCUIT",
+    "Microcircuit",
+    "MicrocircuitSpec",
     "PopulationSpec",
     "ProjectionSpec",
     "ScaffoldNetwork",
     "build_cerebellum",
+    "build_microcircuit",
     "compile_scaffold",
     "poisson_stimulus",
     "scaffold_policies",

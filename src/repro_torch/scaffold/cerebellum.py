@@ -40,13 +40,12 @@ from typing import Dict, List, Optional, Tuple
 
 from ..core.hw import DEFAULT_S2
 from ..core.layer import (
-    DENSE_ELEMENT_CAP,
     LIFParams,
     Population,
     SNNNetwork,
-    is_sparse,
     random_sparse_projection,
 )
+from ..core.switching import over_dense_cap
 
 __all__ = [
     "CEREBELLUM",
@@ -333,14 +332,7 @@ def scaffold_policies(net: SNNNetwork) -> List[str]:
     ``ideal`` two-way compile-and-measure.  The resulting mix is the
     per-size paradigm record the scale benchmark reports.
     """
-    policies = []
-    for e in net.projections:
-        dense_elems = e.n_source * e.n_target
-        if is_sparse(e) and dense_elems > DENSE_ELEMENT_CAP:
-            policies.append("serial")
-        else:
-            policies.append("ideal")
-    return policies
+    return ["serial" if over_dense_cap(e) else "ideal" for e in net.projections]
 
 
 def compile_scaffold(

@@ -1334,3 +1334,55 @@ def test_gather_kernel_at_scaffold_widths(card, r, lanes, cols):
     if cols == 8:
         x = x.t().contiguous().t()           # the fused step's (B, S) view
     assert torch.equal(sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x))
+
+
+@pytest.mark.cuda
+def test_microcircuit_served_by_graph_replay_equals_the_plain_reference(card):
+    """The Potjans-Diesmann microcircuit at scale 0.05 (3,859 neurons,
+    1.1 M synapses, eight recurrent populations) compiled by the
+    benchmark's classifier tenant and served through the engine on the card
+    at micro-batch 1: the 32- and 64-step buckets captured as CUDA graphs
+    and every launch replayed; each reply bit for bit the benchmark's plain
+    reference (``snnbench/reference``) on the same input."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from repro_torch.serving import ServingEngine
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from snnbench import system
+    from snnbench.configs import microcircuit
+    from snnbench.reference import Simulator
+
+    cfg = json.loads((root / "snnbench/configs/microcircuit-pd14.json").read_text())
+    cfg["scale"] = 0.05
+    graph = microcircuit.generate(cfg)
+    net = system.port_network(graph)
+    reports, _ = system.compile_tenants(cfg, net)
+    assert reports["default"].cap_fallbacks == 0       # nothing over the cap here
+    engine = ServingEngine(net, reports["default"], micro_batch=1,
+                           min_bucket_steps=8, device=card)
+    engine.warmup(list(range(32, 65)))
+    rng = np.random.default_rng(28)
+    sim = Simulator(graph, device=card)
+    posts = Simulator.posts(graph)
+    fired = 0
+    for steps in (32, 33, 47, 64, 40, 64):
+        x = (rng.random((steps, sim.n_input)) < cfg["ext_rate"]).astype(np.float32)
+        rid = engine.submit(x)
+        reply = {}
+        while rid not in reply:
+            reply.update(engine.step_continuous())
+        want = [t.cpu().numpy() for t in sim.run(torch.as_tensor(x[:, None, :]).to(card))]
+        for j, z in enumerate(reply[rid]):
+            np.testing.assert_array_equal(np.asarray(z), want[posts[j]][:, 0])
+            fired += int(np.asarray(z).sum())
+    assert fired > 0
+    c = engine.pool.counters_by_model()["default"]
+    assert c["graph_captures"] == 2
+    assert c["graph_replays"] == c["batched_launches"] + c["fused_launches"] == 6
+    st = engine.stats()
+    assert st["relowerings"] == 0 and st["bucket_misses"] == 0 and st["failed"] == 0

@@ -207,11 +207,15 @@ def test_a_replay_copies_in_counts_and_clones_out(tracing, kept_counts, path):
     rec = "vmap" if path == "run_batched" else "fused"
     assert report.serial_forms == {(rec, batch): forms}
     assert exe._entries == {(rec, forms, None)}
-    # (the stand-in's own loop records an eager scan inside each replay's)
+    # (the stand-in's own loop records an eager scan inside each replay's);
+    # a replay's span counts the event form's rows as an eager scan does
     scans = [r for r in trace.records() if r.name == "executor.scan"
              and r.attrs["graph"] == "replay"]
+    rows = sum(c.synaptic_rows.size for l, f in zip(report.layers, forms)
+               if f == "event" for c in l.program.cells)
     assert [(r.attrs, r.counts) for r in scans] == [
-        ({"steps": steps, "graph": "replay"}, {"kernel_launches": 7})] * 2
+        ({"steps": steps, "graph": "replay", "event_rows": rows},
+         {"kernel_launches": 7})] * 2
     h2d = [r.counts["h2d_bytes"] for r in trace.records()
            if r.name == "executor.inputs"]
     assert h2d == [xs[0].nbytes + valid.nbytes] * 2

@@ -394,3 +394,122 @@ def test_engine_multi_input_payloads_equal_reference_engine():
         for a, b, o in zip(got, want, solo):
             np.testing.assert_array_equal(a, np.asarray(b))
             np.testing.assert_array_equal(a, o[:, 0])
+
+
+# -- the Potjans-Diesmann microcircuit -------------------------------------------
+def _microcircuit_copy():
+    """The benchmark's frozen NumPy copy of the generator and its config."""
+    import json
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from snnbench.configs import microcircuit
+
+    cfg = json.loads((root / "snnbench/configs/microcircuit-pd14.json").read_text())
+    return microcircuit, cfg
+
+
+def test_microcircuit_has_the_published_sizes_and_tables():
+    from repro_torch.scaffold.microcircuit import _sizes
+
+    spec = PS.MICROCIRCUIT
+    sizes = _sizes(spec, 1.0)
+    assert sizes == {"ext": 77169, "L23E": 20683, "L23I": 5834, "L4E": 21915,
+                     "L4I": 5479, "L5E": 4850, "L5I": 1065, "L6E": 14395,
+                     "L6I": 2948}
+    assert spec.k_ext == (1600, 1500, 2100, 1900, 2000, 1900, 2900, 2100)
+    assert sum(p > 0 for row in spec.p for p in row) == 55
+    assert spec.p[0][0] == 0.1009 and spec.p[7][7] == 0.1443
+    assert spec.v_th == 1708.0 and spec.alpha == float(np.float32(np.exp(-0.1)))
+    # the config file the benchmark runs holds the same tables
+    _, cfg = _microcircuit_copy()
+    assert [p["n"] for p in cfg["populations"]] == list(spec.sizes)
+    assert [p["k_ext"] for p in cfg["populations"]] == list(spec.k_ext)
+    assert [tuple(r) for r in cfg["p"]] == list(spec.p)
+    assert cfg["scale"] == 1.0 and cfg["reduced"] == [] and cfg["v_th"] == spec.v_th
+    # 52 of the 63 projections are over the dense cap at full scale
+    edges = [(s, t) for t, row in enumerate(spec.p) for s, p in enumerate(row) if p]
+    over = sum(spec.sizes[s] * spec.sizes[t] > P.layer.DENSE_ELEMENT_CAP
+               for s, t in edges)
+    over += sum(77169 * n > P.layer.DENSE_ELEMENT_CAP for n in spec.sizes)
+    assert len(edges) + 8 == 63 and over == 52
+
+
+@pytest.mark.parametrize("scale", [0.01, 0.03])
+def test_build_microcircuit_equals_the_benchmarks_copy(scale):
+    copy, cfg = _microcircuit_copy()
+    graph = copy.generate(dict(cfg, scale=scale))
+    mc = PS.build_microcircuit(scale, seed=cfg["seed"])
+    net = mc.network
+    assert [p["name"] for p in graph["populations"]] == [p.name for p in net.populations]
+    for q, p in zip(graph["populations"], net.populations):
+        assert q["size"] == p.size == mc.sizes[p.name]
+        if p.lif is not None:
+            assert (q["alpha"], q["v_th"]) == (p.lif.alpha, p.lif.v_th)
+    assert len(graph["projections"]) == len(net.projections) == 63
+    assert net.projections[0].name == "L23E->L23E"
+    for e, p in zip(graph["projections"], net.projections):
+        assert (e["name"], e["pre"], e["post"], e["delay_range"]) == (
+            p.name, p.pre, p.post, p.delay_range)
+        for mine, theirs in (("indptr", p.indptr), ("indices", p.indices),
+                             ("weights", p.values), ("delays", p.delay_values)):
+            assert e[mine].dtype == theirs.dtype and np.array_equal(e[mine], theirs)
+
+
+def test_microcircuit_draws_pd14s_statistics():
+    """At scale 0.03: every projection's synapse count within 5 sd of its
+    binomial mean (Table 5's p, K_ext / N_ext for the drive), weights
+    signed by the source, integer magnitudes in 1..127 around their means,
+    delays in 1..4."""
+    scale = 0.03
+    mc = PS.build_microcircuit(scale, seed=5)
+    spec = mc.spec
+    inh = dict(zip(spec.populations, spec.inhibitory), ext=False)
+    p_of = {(s, t): spec.p[i][j] for i, t in enumerate(spec.populations)
+            for j, s in enumerate(spec.populations)}
+    for i, t in enumerate(spec.populations):
+        p_of[("ext", t)] = spec.k_ext[i] * scale / mc.sizes["ext"]
+    assert {(e.pre, e.post) for e in mc.network.projections} == {
+        k for k, p in p_of.items() if p > 0}
+    for e in mc.network.projections:
+        n, p = e.n_source * e.n_target, p_of[(e.pre, e.post)]
+        assert abs(e.n_synapses - n * p) <= 5 * np.sqrt(n * p * (1 - p)) + 1, e.name
+        assert mc.in_degree[e.name] == e.n_synapses / e.n_target
+        w = e.values
+        assert (w < 0).all() if inh[e.pre] else (w > 0).all(), e.name
+        mag = np.abs(w)
+        assert np.array_equal(mag, np.rint(mag)) and mag.min() >= 1 and mag.max() <= 127
+        mean = (spec.w_doubled if (e.pre, e.post) == spec.doubled
+                else spec.w_inh if inh[e.pre] else spec.w_exc)[0]
+        if e.n_synapses > 100:
+            assert abs(mag.mean() - mean) < 0.1 * mean, e.name
+        assert e.delay_values.min() >= 1 and e.delay_values.max() <= 4
+    ext = [e for e in mc.network.projections if e.pre == "ext"]
+    for e, k in zip(ext, spec.k_ext):
+        assert abs(mc.in_degree[e.name] - k * scale) < 0.1 * k * scale, e.name
+    assert spec.ext_rate == 0.008
+    x = mc.stimulus(40, 3, seed=1)
+    assert x.shape == (40, 3, mc.sizes["ext"]) and abs(x.mean() - 0.008) < 0.002
+
+
+def test_microcircuit_runs_its_back_edges_as_the_oracle():
+    """Scale 0.01 under the classifier (gesture's grid): the fused loop on
+    the CPU equals the port's unrolled oracle, and the network fires."""
+    from repro_torch.core.dataset import generate_dataset
+
+    mc = PS.build_microcircuit(0.01, seed=0)
+    net = mc.network
+    assert len(net.back_edges) > 20
+    ds = generate_dataset(source_grid=(100, 300, 1024, 2048),
+                          target_grid=(10, 20, 100, 300),
+                          density_grid=(0.01, 0.03, 0.05, 0.1, 0.5, 0.9),
+                          delay_grid=(1, 4, 8), seed=0)
+    clf, _ = P.train_switch_classifier(ds, seed=0)
+    report = P.SwitchingCompiler("classifier", clf).compile_network(net)
+    x = mc.stimulus(40, 2, seed=3)
+    got = PR.network_executable(net, report, device="cpu").run(x)
+    want = PR.run_graph_reference(net, x)
+    assert_trains_equal(got, want, "microcircuit: fused loop against the oracle")
+    assert sum(float(np.asarray(z).sum()) for z in got) > 0

@@ -232,8 +232,14 @@ def test_an_engine_gives_the_span_tree_and_hand_counted_counters(tracing):
             "kernel_launches": 0,            # CPU tensors run the plain versions
         }
         scan = next(r for r in tree if r.name == "executor.scan")
-        # the CPU runs the eager loop: no CUDA graph off the card
-        assert scan.attrs == {"steps": mb.key.steps, "graph": "eager"}
+        # the CPU runs the eager loop: no CUDA graph off the card; the
+        # event form sweeps the synaptic rows of its projections' programs
+        exe = eng.pool.peek(mb.model).report.executable
+        forms = exe.serial_forms(mb.key.batch)
+        rows = sum(c.synaptic_rows.size for l, f in zip(exe.report.layers, forms)
+                   if f == "event" for c in l.program.cells)
+        assert scan.attrs == {"steps": mb.key.steps, "graph": "eager",
+                              "event_rows": rows}
         pool = next(r for r in tree if r.name == "pool.run_microbatch")
         assert pool.attrs == {"path": "batched" if len(mb.requests) == MICRO
                               else "fused", "hit": True}
@@ -299,3 +305,58 @@ def test_each_span_under_a_profiler_has_its_event(tracing):
         for r, e in zip(mine, theirs):
             us = (r.t1 - r.t0) / 1e3
             assert abs(us - (e.time_range.end - e.time_range.start)) <= 50.0, name
+
+
+def test_each_compiled_projection_has_its_span_and_fallbacks_are_counted(tracing):
+    """``switching.compile_layer``: one span a projection with its name,
+    paradigm, label, ``forced``, synapses and cells; a projection over the
+    dense cap that the classifier sent parallel counts one
+    ``switching.cap_fallbacks``.  Off, nothing is recorded."""
+    from repro_torch.core.dataset import LABEL_PARALLEL
+    from repro_torch.core.layer import Population, random_sparse_projection
+
+    class Parallel:
+        def predict(self, feats):
+            return np.full(len(feats), LABEL_PARALLEL)
+
+    pops = [Population("in", 5000),
+            Population("out", 4000, lif=P.LIFParams(alpha=0.5, v_th=2.0))]
+    big = random_sparse_projection(pops[0], pops[1], 1e-3, 2, seed=1, name="in->out")
+    small = random_sparse_projection(pops[1], pops[1], 1e-4, 2, seed=2, name="out->out")
+    net = P.SNNNetwork(populations=pops, projections=[big, small])
+    comp = P.SwitchingCompiler("classifier", Parallel())
+    comp.compile_network(net)
+    assert trace.records() == []
+    trace.enable()
+    report = comp.compile_network(net)
+    spans = [r for r in trace.records() if r.name == "switching.compile_layer"]
+    assert [s.attrs for s in spans] == [
+        {"name": "in->out", "paradigm": "serial", "predicted": LABEL_PARALLEL,
+         "forced": True, "n_synapses": big.n_synapses,
+         "n_cells": len(report.layers[0].program.cells)},
+        {"name": "out->out", "paradigm": "parallel", "predicted": LABEL_PARALLEL,
+         "forced": False, "n_synapses": small.n_synapses,
+         "n_cells": len(report.layers[1].program.slices)}]
+    assert [s.counts for s in spans] == [{"switching.cap_fallbacks": 1}, None]
+    assert report.cap_fallbacks == 1
+    assert all(s.parent is None for s in spans)
+
+
+@pytest.mark.parametrize("form", ["event", "sparse"])
+def test_the_scan_span_counts_the_event_forms_rows(tracing, form):
+    """``executor.scan``'s ``event_rows``: the synaptic rows of every
+    projection the launch runs in the event form, read from the
+    executable (none when no projection runs it); off, no span."""
+    net, report = _net([12, 10, 6, 5], "serial", 3)
+    exe = P.runtime.network_executable(net, report, device="cpu")
+    x = (np.random.default_rng(1).random((5, 2, 12)) < 0.4).astype(np.float32)
+    exe.run_device(x, serial_form=form)
+    assert trace.records() == []
+    trace.enable()
+    exe.run_device(x, serial_form=form)
+    (scan,) = [r for r in trace.records() if r.name == "executor.scan"]
+    rows = [sum(c.synaptic_rows.size for c in l.program.cells)
+            for l in report.layers if l.paradigm == "serial"]
+    assert len(rows) == 2 and min(rows) > 0
+    assert scan.attrs == {"steps": 5, "graph": "eager",
+                          "event_rows": sum(rows) if form == "event" else 0}
