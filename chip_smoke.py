@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Thirteen
+``nvcc``; exits non-zero, printing no result, without them.  Fourteen
 phases, none of which is caught and swallowed:
 
-1. **Build.**  Compile the five CUDA sources from ``src/repro_torch/csrc``
+1. **Build.**  Compile the six CUDA sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together), print the card's name
-   and power limit, and hold each of the eight kernel entry points against
+   and power limit, and hold each of the first eight kernel entry points against
    its plain PyTorch version on the card: the LIF update bitwise on ``v``
    and ``z`` with ``alpha`` in {0.5, 0.9}; the population step
    (``lif_step``: ring delivery, sum, fire, int8 carry, spike row) bitwise
@@ -171,16 +171,18 @@ phases, none of which is caught and swallowed:
    in turns with the unsharded launch.  (b) Four gloo ranks in spawned
    processes, every one on the one card (NCCL refuses two ranks on one
    card), each collective through a host buffer: the 10k scaffold at batch
-   8 over meshes 4 x 1 and 2 x 2 through ``run_device`` and
-   ``run_batched`` (its ``run_temporal`` is refused, as on one card), the
+   8 over meshes 4 x 1 and 2 x 2 through ``run_device``, ``run_batched``
+   and ``run_device`` with every serial edge in the event form (each rank
+   walks its slab of rows with the event-driven kernel; its
+   ``run_temporal`` is refused, as on one card), the
    gesture network's ``run_temporal`` over the same meshes (its passes and
    residuals the one-card run's), and ``tests/test_tiling.py``'s
    ``skip-and-loop`` fixture placed round-robin over four devices through
    ``shard(assignment=)`` (9 tiles, 36 projections, 28 halo edges): every
    rank's trains bitwise equal to the one-card run, the halo elements sent
    the plan's rows, each rank's K1-K4 launches, collectives and elements
-   printed, and every split K2/K3 operand slab held bitwise against its
-   plain version.
+   printed, and every split K2/K3 and event-form operand slab held
+   bitwise against its plain version.
 13. **The language models over a mesh of ranks** (DTensor trees under the
    reference's sharding rules, ``launch/steps.py``).  (a) A world of one
    NCCL rank, the 1 x 1 mesh, full width: mamba2-130m's f32 train step
@@ -198,6 +200,18 @@ phases, none of which is caught and swallowed:
    data 1, model 2): every rank's gathered outputs within ``lm_close`` of
    the unsharded step on the card (the compressed step's m within one int8
    quantum), each rank's K5 launches and collectives printed.
+
+14. **The event form's kernel** (``event_scatter``, the ninth entry
+   point).  The microcircuit's largest event-form projection, L2/3E ->
+   L2/3E at full scale (20,683 x 20,683, p 0.1009: 43.2 M synapses, drawn as
+   ``build_microcircuit(1.0, seed=0)`` draws it), compiled serial and lowered
+   on the card; its rows indexed by source (``source_major_index``) and the
+   kernel held bitwise against the sweep it replaced (the plain version) at
+   B 1 and t across the ring's wrap, at L2/3E's served rate (0.324 Hz) and
+   at 8 Hz; both timed (graph replay) beside their bound, 12 B a synaptic
+   event of the spikes given.  Phase 8 also times each event-form edge of
+   the scaffold driven and swept.  Alone: ``python3 -c "import chip_smoke as
+   c; print(c.event_phase(c.card_line()))"`` (~40 s).
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -254,6 +268,8 @@ REPLACES = {
     "lif_parallel_scan": "src/repro/kernels/lif_parallel_scan/kernel.py:70",
     "lif_fixed_point": "src/repro/kernels/lif_parallel_scan/kernel.py:70",
     "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:64",
+    "event_scatter": "none (the event form is XLA's segment_sum, "
+                     "src/repro/core/runtime/serial_runtime.py)",
 }
 #: entry points whose source under src/repro_torch/csrc has another name
 SOURCE = {"spike_wdm_project": "spike_wdm_matmul",
@@ -1385,8 +1401,11 @@ def old_scan_network(plan, metas, forms, params, states, spikes,
                 x = (feedback[fb_slot[plan.proj_src[ei]]].to(torch.float32)
                      if plan.proj_back[ei] else pop_out[plan.proj_src[ei]])
                 if meta.paradigm == "serial":
+                    # the event form's operands without their source index:
+                    # the sweep
+                    ops = params[ei][:4] if forms[ei] == "event" else params[ei]
                     _, i_e = project[forms[ei]](
-                        *params[ei], proj_states[ei], x, t,
+                        *ops, proj_states[ei], x, t,
                         delay_range=meta.delay_range, n_target=meta.n_target)
                 else:
                     _, i_e = parallel_project(*params[ei], proj_states[ei], x, t)
@@ -1741,9 +1760,11 @@ def scaffold_compile(n, sc, t_build, compiled):
 
 def scaffold_want(exe, forms, steps, temporal=False):
     """Kernel launches a launch implies: per step one lif_step a population,
-    the fused K2 a parallel edge, K3 a sparse edge; on the temporal path the
-    step-serial block's alone per step, plus one K3 a whole-train sparse
-    projection and one fused K4 an iterative population."""
+    the fused K2 a parallel edge, K3 a sparse edge, the event-driven scatter
+    an event-form edge on the card (swept, with no launch, on the CPU); on
+    the temporal path the step-serial block's alone
+    per step, plus one K3 a whole-train sparse projection and one fused K4
+    an iterative population."""
     want = {k: 0 for k in REPLACES}
     plan = exe.plan
     pops = plan.update_order
@@ -1757,6 +1778,8 @@ def scaffold_want(exe, forms, steps, temporal=False):
     want["lif_step"] = steps * len(pops)
     want["spike_wdm_project"] = steps * edges.count("-")
     want["sparse_gather"] += steps * edges.count("sparse")
+    want["event_scatter"] = (steps * edges.count("event")
+                             if exe.device.type == "cuda" else 0)
     return want
 
 
@@ -1938,15 +1961,10 @@ def scaffold_profile(n, sc, rep, x8):
             "jax_cpu_rates": jax_cpu.get("rates")}
 
 
-#: device operations of one event-form update (serial_runtime.serial_update):
-#: the index cast, the gather, the product, the slot's add and floor-mod,
-#: the segment's product and add, the batch-offset arange and its product
-#: and add, the zero fill and index_add_
-EVENT_OPS = 12
 #: device operations of a projection's step by form: the fused K2 and the
-#: ring write a parallel edge, K3 a sparse edge, PyTorch's own operations an
-#: event-form update
-FORM_OPS = {"-": 2, "sparse": 1, "event": EVENT_OPS}
+#: ring write a parallel edge, K3 a sparse edge, the zero fill and the
+#: event-driven scatter an event-form update
+FORM_OPS = {"-": 2, "sparse": 1, "event": 2}
 
 
 def profiled_counts(launch):
@@ -2058,7 +2076,7 @@ def scaffold_kernels(n, exe, x8, card):
     (compiled ELL, batch 8 through the step's transposed view; library
     torch.sparse.mm), K1's population step each population at batch 8,
     the fused K4 at run_temporal's (T, B.N) trains, and the event form's
-    update and its index_add_ at batch 1."""
+    update at batch 1, driven and swept."""
     from repro_torch.core.runtime.serial_runtime import serial_update
     from repro_torch.kernels.lif_parallel_scan import (
         lif_fixed_point, lif_fixed_point_launch, lif_fixed_point_ref,
@@ -2208,21 +2226,105 @@ def scaffold_kernels(n, exe, x8, card):
             continue
         meta = exe.metas[i]
         x_t = spikes((1, meta.n_source)).float()
-        w, d, s, tg = exe.params[i]
-        upd = functools.partial(serial_update, w, d, s, tg, x_t, 3,
-                                delay_range=meta.delay_range, n_target=meta.n_target)
-        seg = (((d + 3) % (meta.delay_range + 1)) * meta.n_target + tg).long()
-        contrib = x_t[:, s.long()].reshape(-1) * w
-        buf = torch.zeros((meta.delay_range + 1) * meta.n_target, device=CARD)
-        ms_upd = device_ms(upd)
-        ms_add = device_ms(functools.partial(buf.index_add_, 0, seg, contrib))
+        w, d, s, tg, row_ptr = exe._event_param(i)
+        kw = dict(delay_range=meta.delay_range, n_target=meta.n_target)
+        driven = functools.partial(serial_update, w, d, s, tg, row_ptr, x_t, 3,
+                                   **kw)
+        swept = functools.partial(serial_update, w, d, s, tg, None, x_t, 3, **kw)
+        require(torch.equal(driven()[0], swept()[0]),
+                f"scaffold {n}: the event-driven scatter differs from the sweep")
+        events = float(x_t[0] @ torch.diff(row_ptr).float())
         edge = exe.report.layers[i].layer_name
         event.append({"size": n, "edge": edge, "rows": int(w.numel()),
-                      "update_ms": ms_upd, "index_add_ms": ms_add})
+                      "events": events, "update_ms": device_ms(driven),
+                      "sweep_ms": device_ms(swept, iters=20),
+                      "bound_ms": bound_ms(12 * events, 0, 1)[0]})
         print(f"scaffold kernel [{card}]: {n} event form {edge} at batch 1 "
-              f"({int(w.numel())} synapse rows): update {ms_upd:.5f} ms, its "
-              f"index_add_ {ms_add:.5f} ms")
+              f"({int(w.numel())} synapse rows, {events:g} events): driven "
+              f"{event[-1]['update_ms']:.5f} ms, the sweep "
+              f"{event[-1]['sweep_ms']:.5f} ms, bound "
+              f"{event[-1]['bound_ms']:.6f} ms (12 B an event)")
     return rows, event
+
+
+#: phase 14: spike probabilities a step of L2/3E at B 1: its mean rate in
+#: the served microcircuit (0.324 Hz at 1 ms, tools/microcircuit_rates.py),
+#: and the external sources' 8 Hz
+EVENT_RATES = {"L2/3E 0.324 Hz": 0.000324, "8 Hz": 0.008}
+
+
+def l23e_projection():
+    """The microcircuit's largest projection, L2/3E -> L2/3E at full scale
+    (20,683 x 20,683, p 0.1009: 43.2 M synapses), drawn as
+    ``build_microcircuit(1.0, seed=0)`` draws it (its projection 0)."""
+    from repro_torch.core.layer import SparseProjection
+    from repro_torch.scaffold.microcircuit import MICROCIRCUIT as spec
+    from repro_torch.scaffold.microcircuit import bernoulli_pairs
+
+    n, p = spec.sizes[0], spec.p[0][0]
+    rng = np.random.default_rng([0, 0])
+    indptr, indices = bernoulli_pairs(rng, n, n, p)
+    mag = np.clip(np.rint(rng.normal(*spec.w_exc, len(indices))), 1, 127)
+    delays = np.clip(np.rint(rng.normal(*spec.d_exc, len(indices))), 1,
+                     spec.delay_range).astype(np.int64)
+    return SparseProjection(
+        n_source=n, n_target=n, indptr=indptr, indices=indices, values=mag,
+        delay_values=delays, delay_range=spec.delay_range, name="L23E->L23E",
+        pre="L23E", post="L23E")
+
+
+def event_phase(card):
+    """Phase 14: the event form's update on the microcircuit's largest
+    event-form projection (L2/3E -> L2/3E, compiled serial and lowered as
+    the benchmark's tenant lowers it) at B 1: the event-driven kernel
+    against the sweep it replaced (the plain version), bitwise at t across
+    the ring's wrap, then each timed (graph replay) beside its bound, 12 B
+    a synaptic event of the spikes given, at each of EVENT_RATES.  Returns
+    the ``kernels`` row of event_scatter."""
+    from repro_torch.core.runtime.serial_runtime import lower_serial, source_major_index
+    from repro_torch.core.serial_compiler import compile_serial
+    from repro_torch.kernels.event_scatter import event_scatter, event_scatter_ref
+
+    t0 = time.perf_counter()
+    exe = lower_serial(compile_serial(l23e_projection()), device=CARD)
+    swept = (exe.row_weight, exe.row_delay, exe.row_src, exe.row_tgt)
+    rows = tuple(a.clone() for a in swept)          # the rows the kernel reads
+    t_index = time.perf_counter()
+    row_ptr = source_major_index(*rows, n_source=exe.n_source)
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t_index
+    n_rows, d_slots = int(exe.row_weight.numel()), exe.delay_range + 1
+    kw = dict(d_slots=d_slots, n_target=exe.n_target)
+    print(f"event [{card}]: L2/3E -> L2/3E lowered, {n_rows} rows in cell order, "
+          f"in {time.perf_counter() - t0:.1f} s; its source index in {t_index:.3f} s")
+    gen = torch.Generator(device=CARD).manual_seed(14)
+    out_degree = torch.diff(row_ptr).float()
+    row = None
+    for what, p in EVENT_RATES.items():
+        x = (torch.rand((1, exe.n_source), generator=gen, device=CARD) < p).float()
+        for t in range(2 * d_slots + 1):
+            require(torch.equal(event_scatter(*rows, row_ptr, x, t, **kw),
+                                event_scatter_ref(*swept, x, t, **kw)),
+                    f"event: the kernel differs from the sweep at {what}, t {t}")
+        events = float(x[0] @ out_degree)
+        t = kernel_time(lambda: event_scatter(*rows, row_ptr, x, 3, **kw),
+                        lambda: event_scatter_ref(*swept, x, 3, **kw), None,
+                        12 * events, 0, 1, iters=100)
+        print(f"event timing [{card}]: L2/3E -> L2/3E at B 1, {what} "
+              f"({int(x.sum())} sources fired, {events:g} events): kernel "
+              f"{t['ms']:.5f} ms, the sweep {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.6f} ms (12 B an event); {t['plain_ms'] / t['ms']:.1f}x; "
+              f"bitwise equal at t 0..{2 * d_slots}")
+        if row is None:
+            row = {"name": "event_scatter", "route": "cuda",
+                   "source": "src/repro_torch/csrc/event_scatter.cu",
+                   "replaces": REPLACES["event_scatter"], "max_abs_err": 0.0,
+                   "shape": f"R {n_rows}, S {exe.n_source}, B 1, {what}",
+                   **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}}
+    del exe, swept, rows
+    torch.cuda.empty_cache()
+    return row
 
 
 def scaffold_engine(sc, rep, exe, card):
@@ -3490,6 +3592,7 @@ def mesh_rank(rank, world, case_path, out_dir):
     from repro_torch.distributed import exchange, snn_mesh
     from repro_torch.distributed.sharding import is_sharded
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.event_scatter import event_scatter, event_scatter_ref
     from repro_torch.kernels.sparse_gather import sparse_gather, sparse_gather_ref
     from repro_torch.kernels.spike_wdm_matmul import (
         spike_wdm_project, spike_wdm_project_ref,
@@ -3537,7 +3640,11 @@ def mesh_rank(rank, world, case_path, out_dir):
         xs = torch.as_tensor(x8, device=CARD)
         paths = mesh_paths(exe, xs)
         paths.pop("run_temporal")            # refused at 10k, as on one card
-        run(f"scaffold {tag}", exe, paths, want, xs.shape[0])
+        # every serial edge in the event form: each rank walks its slab of
+        # rows with the kernel, and the partial updates are summed
+        paths["run_device_event"] = lambda: exe.run_device(xs, serial_form="event")
+        run(f"scaffold {tag}", exe, paths,
+            dict(want, run_device_event=want["run_device"]), xs.shape[0])
         # every split K2/K3 operand this rank holds, at its own shape,
         # against the plain version on the card (not counted: after the runs)
         gen = torch.Generator(device=CARD).manual_seed(rank)
@@ -3555,6 +3662,16 @@ def mesh_rank(rank, world, case_path, out_dir):
                          for t in range(m.ring_depth + 2))
                 res["operands"].append(("spike_wdm_project", tag, i,
                                         tuple(wdm.shape), ok))
+            elif kind == "event" and i in exe._event:
+                rows, row_ptr = exe.params[i], exe._event[i]
+                x = (torch.rand((xs.shape[1] // data, m.n_source), device=CARD,
+                                generator=gen) < 0.2).float()
+                kw = dict(d_slots=m.delay_range + 1, n_target=m.n_target)
+                ok = all(torch.equal(event_scatter(*rows, row_ptr, x, t, **kw),
+                                     event_scatter_ref(*rows, x, t, **kw))
+                         for t in range(m.delay_range + 2))
+                res["operands"].append(("event_scatter", tag, i,
+                                        tuple(rows[0].shape), ok))
             elif kind == "sparse":
                 val, idx = exe._sparse[i]
                 x = (torch.rand((xs.shape[1] // data, m.n_source), device=CARD,
@@ -3676,7 +3793,8 @@ def mesh_four_ranks(card, kept, gesture):
             f"mesh four ranks: sharded operands that differ from their plain "
             f"versions: {[o for o in ops if not o[-1]]}")
     shapes = sorted({(o[0], tuple(o[3])) for o in ops})
-    print(f"mesh four ranks [{card}]: {len(ops)} sharded K2/K3 operand slabs "
+    print(f"mesh four ranks [{card}]: {len(ops)} sharded K2/K3/event-form "
+          "operand slabs "
           f"bitwise equal to their plain versions, shapes {shapes}; skip-and-loop "
           f"halo {MICRO_BATCH * sum(pairs.values())} elements a step "
           f"({len(pairs)} (pre, dst_device) rows of the plan's {len(da.halo)} "
@@ -4819,6 +4937,14 @@ def main() -> int:
     lm_counts = lm_mesh_phase(card)
     for row in rows:
         row["launches"] += lm_counts.get(row["name"], 0)
+
+    lap("14. the event form's kernel")
+    # 14. the event-driven scatter against the sweep on the microcircuit's
+    # largest event-form projection; its launches are phase 8's and 12's
+    event_row = event_phase(card)
+    event_row["launches"] = launches["event_scatter"] + m_counts.get(
+        "event_scatter", 0)
+    rows.append(event_row)
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

@@ -20,6 +20,7 @@ from .serial_runtime import (
     serial_update,
     serial_update_dense,
     serial_update_sparse,
+    source_major_index,
     sparse_serial_operands,
 )
 from .parallel_runtime import (
@@ -76,7 +77,7 @@ __all__ = [
     "serial_project", "serial_project_dense", "serial_project_sparse",
     "serial_step", "serial_step_dense", "serial_step_sparse",
     "serial_update", "serial_update_dense", "serial_update_sparse",
-    "dense_serial_weights", "sparse_serial_operands",
+    "dense_serial_weights", "sparse_serial_operands", "source_major_index",
     "ParallelExecutable", "lower_parallel", "parallel_project",
     "parallel_step", "run_parallel",
     "GraphPlan", "LayerMeta", "NetworkExecutable",

@@ -100,6 +100,7 @@ from .serial_runtime import (
     serial_update,
     serial_update_dense,
     serial_update_sparse,
+    source_major_index,
     sparse_serial_operands,
 )
 from .temporal_runtime import (
@@ -353,6 +354,18 @@ def _event_rows(metas, forms) -> int:
     return sum(m.n_rows for m, f in zip(metas, forms) if f == "event")
 
 
+def _count_event_steps(forms, params, steps: int) -> None:
+    """Count the launch's event-form projection-steps by how they run:
+    ``event_driven`` where the operands carry the rows' index by source
+    (the kernel walks the fired sources' rows), ``event_swept`` where they
+    do not (the CPU sweeps every row).  Projections another rank runs
+    have no operands here and are not counted."""
+    event = [p for f, p in zip(forms, params) if f == "event" and p is not None]
+    driven = sum(p[4] is not None for p in event)
+    trace.count("event_driven", steps * driven)
+    trace.count("event_swept", steps * (len(event) - driven))
+
+
 def _scan_network(
     plan: GraphPlan,
     metas: Tuple[LayerMeta, ...],
@@ -411,6 +424,7 @@ def _scan_network(
             scan.set(graph="capture" if spikes.is_cuda
                      and torch.cuda.is_current_stream_capturing() else "eager",
                      event_rows=_event_rows(metas, forms))
+            _count_event_steps(forms, params, T)
         launched = sum(launch_counts().values()) if scan else 0
         for t in range(T):
             x_t = spikes[t]
@@ -691,6 +705,7 @@ class NetworkExecutable:
         self.cost_model = cost_model or DEFAULT_SERIAL_BATCH_COST
         self._dense = {}     # layer index -> (d_slots, S, T) dense operand
         self._sparse = {}    # layer index -> (ell_val, ell_idx) ELL operands
+        self._event = {}     # layer index -> row_ptr, the rows' source index
         self._temporal = {}  # layer index -> parallel WDM as (d_slots, S, T)
         self._nonneg = {}    # layer index -> all weights >= 0
         self._tplan = None   # cached TemporalPlan
@@ -835,6 +850,21 @@ class NetworkExecutable:
             self._dense[i] = w
         return (w,)
 
+    def _event_param(self, i: int) -> Tuple[torch.Tensor, ...]:
+        """The layer's event-form operands and their index by source, built
+        once and cached (this rank's rows reordered source-major in place).
+        The index exists wherever the rows are on the card, whole or a
+        rank's slab (whose partial update the launch completes as the
+        sweep's); on the CPU it is None and the rows are swept."""
+        p = self.params[i]
+        if p[0].device.type != "cuda":
+            return (*p, None)
+        row_ptr = self._event.get(i)
+        if row_ptr is None:
+            row_ptr = source_major_index(*p, n_source=self.metas[i].n_source)
+            self._event[i] = row_ptr
+        return (*p, row_ptr)
+
     def _sparse_param(self, i: int) -> Tuple[torch.Tensor, ...]:
         """The layer's ELL (sparse-form) operands, built once and cached."""
         ell = self._sparse.get(i)
@@ -951,6 +981,7 @@ class NetworkExecutable:
 
     def _params_for(self, forms: Tuple[str, ...]) -> List[Tuple]:
         per_form = {
+            "event": self._event_param,
             "dense": self._dense_param,
             "sparse": self._sparse_param,
             "temporal": self._temporal_param,
@@ -1075,6 +1106,7 @@ class NetworkExecutable:
         self._specs.clear()
         self._dense.clear()
         self._sparse.clear()
+        self._event.clear()
         self._temporal.clear()
         self._tplan = None
         self._entries.clear()
@@ -1423,6 +1455,7 @@ class NetworkExecutable:
             if scan:
                 scan.set(graph="replay", event_rows=_event_rows(self.metas, forms))
                 trace.count("kernel_launches", sum(g.launches.values()))
+                _count_event_steps(forms, self._params_for(forms), steps)
         add_launch_counts(g.launches)
         self.graph_replays += 1
         with trace.span("executor.check"):

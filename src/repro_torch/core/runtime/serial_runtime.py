@@ -10,13 +10,19 @@ Three kernel *forms* implement the synaptic-current step, as in the
 reference package:
 
 * :func:`serial_project` — the event form: per synaptic row r,
-  ``weight[r] * x_t[src[r]]`` scattered into the (delay-slot, target) ring
-  by one flat ``index_add_`` over all ``B * R`` (batch, row) pairs with
-  batch-offset segment ids (the reference's XLA ``segment_sum``).  On CUDA
-  ``index_add_`` accumulates with atomics, so the order of the sums
-  changes from run to run; the result is still exact, because every
-  weight is an int8-magnitude integer and every current an integer below
-  2^24, which the bit-identity tests rely on.
+  ``weight[r] * x_t[src[r]]`` scattered into the (delay-slot, target)
+  ring.  With the rows ordered source-major and indexed by source
+  (:func:`source_major_index`, the flattened address list), the CUDA
+  kernel :mod:`repro_torch.kernels.event_scatter` walks only the rows of
+  the sources that fired, as the ARM core does, whether this rank holds
+  the rows whole or a slab of them; without the index (the CPU) it is the
+  sweep
+  (:func:`~repro_torch.kernels.event_scatter.event_scatter_ref`): one
+  flat ``index_add_`` over all ``B * R`` (batch, row) pairs, the
+  reference's XLA ``segment_sum``.  On CUDA both accumulate with atomics,
+  so the order of the sums changes from run to run; the result is still
+  exact, because every weight is an int8-magnitude integer and every
+  current an integer below 2^24, which the bit-identity tests rely on.
 * :func:`serial_project_dense` — the dense fallback: the row arrays folded
   into a ``(d_slots, S, T)`` tensor so the update is one ``torch.einsum``
   plus a ring roll.  The einsum is exact only in full float32, so on CUDA
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from ...device import require_full_f32, resolve_device
+from ...kernels.event_scatter import event_scatter, event_scatter_ref
 from ...kernels.lif_update import lif_update, ring_deliver_ref
 from ...kernels.sparse_gather import sparse_gather
 from ..layer import LIFParams, SNNLayer
@@ -118,6 +125,7 @@ def lower_serial(
 
 def serial_update(
     exe_weight, exe_delay, exe_src, exe_tgt,
+    row_ptr,              # (S + 1,) i32 rows' index by source, or None
     x_t: torch.Tensor,    # (B, S) f32
     t: int,
     *,
@@ -128,31 +136,56 @@ def serial_update(
     """Event form's update half: ``(upd, 0)``, ``upd`` the ``(d_slots, B,
     n_target)`` view of this step's scattered spikes.
 
-    The segment ids already hold each row's ring slot ``(delay + t) mod
-    d_slots``, so the update lands unshifted.  ``complete``, when given,
-    sums the flat update over the ranks that hold the other slabs of the
-    synaptic rows (:mod:`repro_torch.distributed.exchange`).
+    Each row lands in ring slot ``(delay + t) mod d_slots``, so the update
+    lands unshifted.  ``row_ptr`` (:func:`source_major_index`), when given,
+    is the rows' index by source: the update then walks only the fired
+    sources' rows (:func:`~repro_torch.kernels.event_scatter.event_scatter`,
+    the kernel on the card); with None every row is swept.  ``complete``,
+    when given, sums the update over the ranks that hold the other slabs of
+    the synaptic rows (:mod:`repro_torch.distributed.exchange`): a slab's
+    index covers its own rows, so its update is partial either way.
     """
     d_slots = delay_range + 1
-    batch = x_t.shape[0]
-    # event-driven gather: row fires iff its source spiked this timestep
-    fired = x_t[:, exe_src.long()]                   # (B, R)
-    contrib = fired * exe_weight[None, :]            # (B, R)
-    slot = (exe_delay + t) % d_slots                 # (R,) floor-mod
-    seg = slot * n_target + exe_tgt                  # ring-flat segment ids
-    # one flat index_add_ over all (batch, row) pairs: batch b's rows are
-    # offset into their own block of d_slots * n_target segments
-    seg_flat = (
-        torch.arange(batch, dtype=torch.int64, device=x_t.device)[:, None]
-        * (d_slots * n_target)
-        + seg[None, :]
-    ).reshape(-1)                                    # (B*R,)
-    updates = torch.zeros(
-        batch * d_slots * n_target, dtype=torch.float32, device=x_t.device
-    ).index_add_(0, seg_flat, contrib.reshape(-1))
+    if row_ptr is None:
+        updates = event_scatter_ref(
+            exe_weight, exe_delay, exe_src, exe_tgt, x_t, t,
+            d_slots=d_slots, n_target=n_target,
+        )
+    else:
+        updates = event_scatter(
+            exe_weight, exe_delay, exe_src, exe_tgt, row_ptr, x_t, t,
+            d_slots=d_slots, n_target=n_target,
+        )
     if complete is not None:
         updates = complete(updates)
-    return updates.view(batch, d_slots, n_target).transpose(0, 1), 0
+    return updates.transpose(0, 1), 0
+
+
+def source_major_index(
+    exe_weight, exe_delay, exe_src, exe_tgt, n_source: int
+) -> torch.Tensor:
+    """Order the rows source-major **in place** and return ``row_ptr``,
+    ``(n_source + 1,)`` int32: source ``s`` owns rows ``row_ptr[s] ..
+    row_ptr[s + 1]``.
+
+    This is the serial compiler's address list flattened over the cells:
+    the lowered rows are source-major within each cell, and a source's
+    rows in its cells become one run.  One stable sort on the rows' own
+    device, then each array gathered into its own storage, so no second
+    copy of the rows stays; every form sums the rows exactly, in any
+    order, so every tensor holding them stays valid.
+    """
+    src, perm = torch.sort(exe_src, stable=True)
+    exe_src.copy_(src)
+    del src
+    for a in (exe_weight, exe_delay, exe_tgt):
+        a.copy_(a[perm])
+    del perm
+    row_ptr = torch.zeros(n_source + 1, dtype=torch.int32, device=exe_src.device)
+    if exe_src.numel():
+        counts = torch.bincount(exe_src, minlength=n_source)
+        row_ptr[1:] = torch.cumsum(counts, 0)
+    return row_ptr
 
 
 def serial_project(
@@ -172,7 +205,7 @@ def serial_project(
     ``t``.
     """
     upd, shift = serial_update(
-        exe_weight, exe_delay, exe_src, exe_tgt, x_t, t,
+        exe_weight, exe_delay, exe_src, exe_tgt, None, x_t, t,
         delay_range=delay_range, n_target=n_target,
     )
     return ring, ring_deliver_ref(ring, upd, shift, t)

@@ -9,6 +9,7 @@ run can show that it went through the kernel.
 """
 from __future__ import annotations
 
+from .event_scatter import ops as _event_ops
 from .lif_parallel_scan import ops as _scan_ops
 from .lif_update import ops as _lif_ops
 from .sparse_gather import ops as _gather_ops
@@ -22,6 +23,7 @@ KERNEL_OPS = {
     "sparse_gather": _gather_ops,
     "lif_parallel_scan": _scan_ops,
     "ssd_chunk": _ssd_ops,
+    "event_scatter": _event_ops,
 }
 
 

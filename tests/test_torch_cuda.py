@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core import SwitchingCompiler, feedforward_network
 from repro_torch.core.layer import LIFParams
-from repro_torch.core.runtime import network_executable
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.core.runtime import network_executable, source_major_index
+from repro_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
+from repro_torch.kernels.event_scatter import event_scatter, event_scatter_ref
 from repro_torch.kernels.lif_parallel_scan import (
     lif_fixed_point,
     lif_fixed_point_launch,
@@ -44,6 +45,10 @@ from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_project_ref,
 )
 from repro_torch.kernels.ssd_chunk import SSDChunk, ssd_chunk, ssd_chunk_ref
+from test_torch_event_scatter import CASES as EVENT_CASES
+from test_torch_event_scatter import projection as event_projection
+from test_torch_event_scatter import slabs as event_slabs
+from test_torch_event_scatter import spikes as event_spikes
 
 
 def wdm_operands(m, k, n, seed, p=0.3):
@@ -1386,3 +1391,150 @@ def test_microcircuit_served_by_graph_replay_equals_the_plain_reference(card):
     assert c["graph_replays"] == c["batched_launches"] + c["fused_launches"] == 6
     st = engine.stats()
     assert st["relowerings"] == 0 and st["bucket_misses"] == 0 and st["failed"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch,n_source,n_target,n_rows,delay_range,fired,silent", EVENT_CASES)
+def test_event_kernel_on_card(card, batch, n_source, n_target, n_rows, delay_range,
+                              fired, silent):
+    """The event-driven scatter walks only the fired sources' rows and
+    equals the plain sweep bitwise, on the card and on the CPU, at every t
+    across the ring's wrap: B 1 and 3, delays 1-4, no source or every
+    source fired, sources with no rows."""
+    rows = [a.to(card) for a in event_projection(n_source, n_target, n_rows,
+                                                 delay_range, seed=n_rows, silent=silent)]
+    cpu = [a.cpu() for a in rows]
+    row_ptr = source_major_index(*rows, n_source=n_source)
+    x = event_spikes(batch, n_source, fired, seed=batch).to(card)
+    d_slots = delay_range + 1
+    for t in range(2 * d_slots + 1):
+        got = event_scatter(*rows, row_ptr, x, t, d_slots=d_slots, n_target=n_target)
+        want = event_scatter_ref(*cpu, x.cpu(), t, d_slots=d_slots, n_target=n_target)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got, event_scatter_ref(*rows, x, t, d_slots=d_slots,
+                                                  n_target=n_target))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_event_kernel_reads_a_strided_column_slice(card, batch):
+    """An input edge's spikes go in as a column slice of the step's train,
+    read through its strides."""
+    rows = [a.to(card) for a in event_projection(60, 25, 700, 4, seed=5)]
+    row_ptr = source_major_index(*rows, n_source=60)
+    train = event_spikes(batch, 200, 0.3, seed=6).to(card)
+    x = train[:, 70:130]
+    for t in (0, 3, 9):
+        assert torch.equal(
+            event_scatter(*rows, row_ptr, x, t, d_slots=5, n_target=25),
+            event_scatter_ref(*rows, x.contiguous(), t, d_slots=5, n_target=25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slabs", [2, 3])
+def test_event_kernel_over_row_slabs_sums_to_the_sweep(card, n_slabs):
+    """A rank's slab of rows, indexed alone over all the sources, gives the
+    kernel a partial update; the slabs' partials sum to the whole rows'
+    sweep bitwise, as the launch's all-reduce sums them."""
+    rows = [a.to(card) for a in event_projection(50, 20, 800, 3, seed=11,
+                                                 silent=(3, 4))]
+    x = event_spikes(3, 50, 0.3, seed=12).to(card)
+    parts = event_slabs(rows, n_slabs)
+    ptrs = [source_major_index(*part, n_source=50) for part in parts]
+    for t in (0, 2, 5):
+        want = event_scatter_ref(*rows, x, t, d_slots=4, n_target=20)
+        got = sum(event_scatter(*part, ptr, x, t, d_slots=4, n_target=20)
+                  for part, ptr in zip(parts, ptrs))
+        assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.cuda
+def test_a_placed_executable_walks_its_rows_with_the_kernel(card, tmp_path):
+    """Under ``shard(mesh=)`` (a world of one rank, 1 x 1) the event form's
+    operands on the card carry their index: every event-form
+    projection-step launches the kernel, and the trains are bitwise the
+    unplaced launch's."""
+    import torch.distributed as dist
+    from repro_torch.core import CompileReport, SNNNetwork, random_layer
+    from repro_torch.core.runtime import NetworkExecutable
+    from repro_torch.distributed import sharding as shardlib
+
+    layers = []
+    for i, (a, b) in enumerate([(40, 30), (30, 20), (20, 12)]):
+        layer = random_layer(a, b, density=0.4, delay_range=2 + i, seed=60 + i)
+        layer.lif = LIFParams(alpha=0.5, v_th=16.0)
+        layers.append(layer)
+    net = SNNNetwork(layers=layers)
+    report = CompileReport(layers=[SwitchingCompiler("serial").compile_layer(l)
+                                   for l in net.layers])
+    x = (np.random.default_rng(3).random((6, 2, 40)) < 0.4).astype(np.float32)
+    base = NetworkExecutable.build(net, report, device=card)
+    want = [z.clone() for z in base.run_device(x, serial_form="event")]
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        exe = NetworkExecutable.build(net, report, device=card).shard(
+            mesh=shardlib._device_mesh([0], (1, 1), ("data", "model")))
+        assert exe.mesh is not None
+        reset_launch_counts()
+        got = exe.run_device(x, serial_form="event")
+        assert launch_counts()["event_scatter"] == 6 * len(layers)
+        params = exe._params_for(exe.serial_forms(2, "event"))
+        assert all(p[4] is not None and p[4].is_cuda for p in params)
+    finally:
+        dist.destroy_process_group()
+    assert sum(float(z.sum()) for z in want) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_event_kernel_at_the_microcircuit_l23e_shape(card):
+    """One projection shaped like the microcircuit's L2/3E -> L2/3E (20,683
+    sources and targets, p 0.1009: 43.2 M rows, delays 1-4) at B 1 and
+    1.5 % of the sources firing: the kernel equals the sweep bitwise, and a
+    CUDA graph of it replays the eager result and counts its launch."""
+    n, p, d_slots = 20683, 0.1009, 5
+    gen = torch.Generator(device=card).manual_seed(23)
+    n_rows = int(n * n * p)
+    src = torch.randint(0, n, (n_rows,), generator=gen, device=card, dtype=torch.int32)
+    tgt = torch.randint(0, n, (n_rows,), generator=gen, device=card, dtype=torch.int32)
+    dly = torch.randint(1, d_slots, (n_rows,), generator=gen, device=card,
+                        dtype=torch.int32)
+    w = torch.randint(-127, 128, (n_rows,), generator=gen, device=card).float()
+    row_ptr = source_major_index(w, dly, src, tgt, n_source=n)
+    assert int(row_ptr[-1]) == n_rows
+    x = (torch.rand((1, n), generator=gen, device=card) < 0.015).float()
+    want = event_scatter_ref(w, dly, src, tgt, x, 7, d_slots=d_slots, n_target=n)
+    got = event_scatter(w, dly, src, tgt, row_ptr, x, 7, d_slots=d_slots, n_target=n)
+    assert torch.equal(got, want) and bool(want.any())
+    del want
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        captured = event_scatter(w, dly, src, tgt, row_ptr, x, 7, d_slots=d_slots,
+                                 n_target=n)
+        graph.capture_end()
+    torch.cuda.current_stream(card).wait_stream(side)
+    reset_launch_counts()
+    add_launch_counts({"event_scatter": 1})     # what the pool adds a replay
+    graph.replay()
+    assert torch.equal(captured, got)
+    assert launch_counts()["event_scatter"] == 1
+
+
+@pytest.mark.cuda
+def test_event_kernel_refuses_what_it_does_not_take(card):
+    rows = [a.to(card) for a in event_projection(10, 4, 30, 2, seed=1)]
+    row_ptr = source_major_index(*rows, n_source=10)
+    x = torch.ones((2, 10), device=card)
+    with pytest.raises(ValueError):          # a row array left on the CPU
+        event_scatter(rows[0].cpu(), *rows[1:], row_ptr, x, 0, d_slots=3, n_target=4)
+    with pytest.raises(TypeError):           # int64 delays
+        event_scatter(rows[0], rows[1].long(), *rows[2:], row_ptr, x, 0, d_slots=3,
+                      n_target=4)
+    with pytest.raises(ValueError):          # an index of another width
+        event_scatter(*rows, row_ptr[:-1], x, 0, d_slots=3, n_target=4)

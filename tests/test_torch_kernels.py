@@ -22,6 +22,7 @@ from repro.kernels.lif_update import lif_update as jax_lif_update
 from repro.kernels.sparse_gather import sparse_gather as jax_sparse_gather
 from repro.kernels.spike_wdm_matmul import spike_wdm_matmul as jax_wdm_matmul
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.event_scatter import event_scatter
 from repro_torch.kernels.lif_parallel_scan import (
     lif_fixed_point,
     lif_parallel_scan,
@@ -272,8 +273,12 @@ def test_plain_versions_count_no_launches():
     lif_step([CurrentEdge(torch.ones((2, 3)))], torch.zeros((2, 3)),
              torch.zeros((2, 3), dtype=torch.int8), torch.empty((2, 3)), 0,
              alpha=0.5, v_th=1.0)
+    rows = torch.zeros(3, dtype=torch.int32)
+    event_scatter(torch.ones(3), rows + 1, rows, rows,
+                  torch.tensor([0, 3, 3], dtype=torch.int32), torch.ones((2, 2)), 0,
+                  d_slots=2, n_target=1)
     assert launch_counts() == {
         "lif_update": 0, "lif_step": 0, "spike_wdm_matmul": 0, "spike_wdm_project": 0,
         "sparse_gather": 0, "lif_parallel_scan": 0, "lif_fixed_point": 0,
-        "ssd_chunk": 0,
+        "ssd_chunk": 0, "event_scatter": 0,
     }

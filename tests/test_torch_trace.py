@@ -14,6 +14,8 @@ import torch
 import repro_torch.core as P
 import repro_torch.serving as PS
 from repro_torch import trace
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from test_torch_cuda import card  # noqa: F401  (the card fixture)
 
 #: model -> (layer sizes, first paradigm)
 MODELS = {"default": ([12, 10, 6], "serial"), "b": ([9, 8], "parallel")}
@@ -226,16 +228,19 @@ def test_an_engine_gives_the_span_tree_and_hand_counted_counters(tracing):
             for k, v in (r.counts or {}).items():
                 counts[k] = counts.get(k, 0) + v
         distinct = {id(z): z for z in outs}.values()
+        exe = eng.pool.peek(mb.model).report.executable
+        forms = exe.serial_forms(mb.key.batch)
         assert counts == {
             "h2d_bytes": mb.spikes.nbytes + mb.valid_steps.nbytes,
             "d2h_bytes": sum(z.numel() * z.element_size() for z in distinct) + 1,
             "kernel_launches": 0,            # CPU tensors run the plain versions
+            # and the CPU sweeps every event-form projection's rows
+            "event_driven": 0,
+            "event_swept": mb.key.steps * forms.count("event"),
         }
         scan = next(r for r in tree if r.name == "executor.scan")
         # the CPU runs the eager loop: no CUDA graph off the card; the
         # event form sweeps the synaptic rows of its projections' programs
-        exe = eng.pool.peek(mb.model).report.executable
-        forms = exe.serial_forms(mb.key.batch)
         rows = sum(c.synaptic_rows.size for l, f in zip(exe.report.layers, forms)
                    if f == "event" for c in l.program.cells)
         assert scan.attrs == {"steps": mb.key.steps, "graph": "eager",
@@ -360,3 +365,31 @@ def test_the_scan_span_counts_the_event_forms_rows(tracing, form):
     assert len(rows) == 2 and min(rows) > 0
     assert scan.attrs == {"steps": 5, "graph": "eager",
                           "event_rows": sum(rows) if form == "event" else 0}
+    # the CPU sweeps each event-form projection each step
+    assert scan.counts == {"kernel_launches": 0, "event_driven": 0,
+                           "event_swept": 5 * 2 if form == "event" else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_the_scan_span_counts_driven_event_steps_on_the_card(tracing, card, batch):
+    """On the card every event-form projection-step runs the driven kernel,
+    eager, captured and replayed alike: ``event_driven`` is the event-form
+    edges times the steps, ``event_swept`` 0, and the replay's trains are
+    the eager launch's."""
+    net, report = _net([12, 10, 6, 5], "serial", 3)
+    exe = P.runtime.network_executable(net, report, device=card)
+    x = (np.random.default_rng(1).random((5, batch, 12)) < 0.4).astype(np.float32)
+    trace.enable()
+    want = [z.clone() for z in exe.run_device(x, serial_form="event")]
+    assert exe.capture_graph(5, batch) == 1
+    reset_launch_counts()
+    got = exe.run_device(x, serial_form="event")
+    assert launch_counts()["event_scatter"] == 5 * 2     # counted on replay
+    scans = [r for r in trace.records() if r.name == "executor.scan"]
+    assert [r.attrs["graph"] for r in scans] == ["eager", "capture", "replay"]
+    for r in scans:
+        assert (r.counts["event_driven"], r.counts["event_swept"]) == (5 * 2, 0)
+        assert r.counts["kernel_launches"] > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
