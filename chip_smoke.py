@@ -1357,84 +1357,6 @@ def old_project(wdm, col_source, col_delay, x_hist, t):
     return spike_wdm_matmul(wdm, stacked).to(torch.float32)
 
 
-def old_scan_network(plan, metas, forms, params, states, spikes,
-                     valid_steps=None, complete=None, halo=None):
-    """The loop the population step replaced (the executor's before it):
-    each serial edge's whole projection (update, roll into the ring, copy
-    out and zero the current slot), the currents summed with torch adds,
-    the int8 carry cast to f32, the standalone K1, the casts back, the copy
-    into the output train, and an int8 feedback ring written each step.
-    One card only: no operand is split and no placement spans ranks."""
-    require(halo is None and not any(complete or ()),
-            "the old population route runs on one card")
-    from repro_torch.core.runtime import executor
-    from repro_torch.core.runtime.parallel_runtime import parallel_project
-    from repro_torch.core.runtime.serial_runtime import (
-        serial_project, serial_project_dense, serial_project_sparse,
-    )
-    from repro_torch.kernels.lif_update import lif_update
-
-    project = {"event": serial_project, "sparse": serial_project_sparse,
-               "dense": serial_project_dense}
-    T, batch = spikes.shape[0], spikes.shape[1]
-    live = executor._live_mask(spikes, valid_steps)
-    if live is not None:
-        spikes = spikes * live
-    proj_states, pop_v, pop_z = states
-    feedback = [torch.zeros((batch, plan.pop_sizes[s]), dtype=torch.int8,
-                            device=spikes.device) for s in plan.back_sources]
-    vz_slot = {p: k for k, p in enumerate(plan.update_order)}
-    fb_slot = {s: k for k, s in enumerate(plan.back_sources)}
-    outs = [torch.empty((T, batch, plan.pop_sizes[p]), dtype=torch.float32,
-                        device=spikes.device) for p in plan.update_order]
-    full_input = tuple(plan.input_slices) == ((0, spikes.shape[2]),)
-    for t in range(T):
-        x_t = spikes[t]
-        pop_out = [None] * len(plan.pop_sizes)
-        for p, (a, b) in zip(plan.input_pops, plan.input_slices):
-            pop_out[p] = x_t if full_input else x_t[:, a:b]
-        for p in plan.update_order:
-            k = vz_slot[p]
-            i_nb = None
-            for ei in plan.in_edges[p]:
-                meta = metas[ei]
-                x = (feedback[fb_slot[plan.proj_src[ei]]].to(torch.float32)
-                     if plan.proj_back[ei] else pop_out[plan.proj_src[ei]])
-                if meta.paradigm == "serial":
-                    # the event form's operands without their source index:
-                    # the sweep
-                    ops = params[ei][:4] if forms[ei] == "event" else params[ei]
-                    _, i_e = project[forms[ei]](
-                        *ops, proj_states[ei], x, t,
-                        delay_range=meta.delay_range, n_target=meta.n_target)
-                else:
-                    _, i_e = parallel_project(*params[ei], proj_states[ei], x, t)
-                i_nb = i_e if i_nb is None else i_nb + i_e
-            v_new, z_new = lif_update(i_nb, pop_v[k], pop_z[k].to(torch.float32),
-                                      alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p])
-            pop_v[k], pop_z[k] = v_new, z_new.to(torch.int8)
-            outs[k][t] = z_new
-            pop_out[p] = z_new
-        for j, s in enumerate(plan.back_sources):
-            feedback[j] = pop_out[s].to(torch.int8)
-    if live is not None:
-        outs = [z * live for z in outs]
-    return outs
-
-
-@contextlib.contextmanager
-def old_population_route():
-    """run_device runs the population route lif_step replaced while inside."""
-    from repro_torch.core.runtime import executor
-
-    saved = executor._scan_network
-    executor._scan_network = old_scan_network
-    try:
-        yield
-    finally:
-        executor._scan_network = saved
-
-
 @contextlib.contextmanager
 def old_fixed_point_route():
     """run_temporal runs the per-pass loop the fused K4 replaced while inside."""
@@ -1580,8 +1502,7 @@ def time_temporal(net, name, rep, batch, card):
 
 def launch_pair(net, rep, batch, steps=None):
     """run_device of one micro-batch (cut to its first ``steps`` steps when
-    given) through the population step, through the route it replaced, and
-    run_batched of the same micro-batch."""
+    given) and run_batched of the same micro-batch."""
     from repro_torch.core.runtime import network_executable
 
     exe = network_executable(net, rep)
@@ -1592,21 +1513,16 @@ def launch_pair(net, rep, batch, steps=None):
     def launch():
         return exe.run_device(xs, valid_steps=vs_t)
 
-    def launch_old():
-        with old_population_route():
-            return exe.run_device(xs, valid_steps=vs_t)
-
     def launch_batched():
         return exe.run_batched(xs, valid_steps=vs_t)
 
-    return launch, launch_old, launch_batched
+    return launch, launch_batched
 
 
 def step_ops(net, name, rep, batch):
-    """Device operations a step of run_device, from the profiler at two
-    train lengths (their difference over the steps between them, so the
-    launch's constant part drops out), for the population-step route and
-    the one it replaced.  The profiler can drop activity records but never
+    """Device operations a step of run_device and run_batched, from the
+    profiler at two train lengths (their difference over the steps between
+    them, so the launch's constant part drops out).  The profiler can drop activity records but never
     adds any, so each count is the largest of three profiles.  A step must
     be its projections' operations (the fused K2 and the ring copy a
     parallel edge, K3 a sparse serial edge) and one lif_step a population;
@@ -1619,7 +1535,7 @@ def step_ops(net, name, rep, batch):
     n_pops = len(net.layer_sizes) - 1
     want = n_pops + sum(2 if l.paradigm == "parallel" else 1 for l in rep.layers)
     launches, ops = {}, {}
-    for route in (0, 1, 2):
+    for route in (0, 1):
         full = launch_pair(net, rep, batch)[route]
         short = launch_pair(net, rep, batch, half)[route]
         n_full, n_short = (max(profiled_ms(fn)[1] for _ in range(3))
@@ -1636,50 +1552,37 @@ def step_ops(net, name, rep, batch):
             f"steps of {n_pops} populations")
     require(ops[0] == want, f"serve {name}: {ops[0]} device operations a step, "
             f"want {want}")
-    require(ops[2] == want, f"serve {name}: run_batched takes {ops[2]} device "
+    require(ops[1] == want, f"serve {name}: run_batched takes {ops[1]} device "
             f"operations a step, want {want}")
     require(waits == 0, f"serve {name}: run_device waits for the card {waits} times")
-    require(launches[0] < launches[1],
-            f"serve {name}: {launches[0]} device launches a launch, old route "
-            f"{launches[1]}")
     print(f"serve: {name:10s} device operations a step {ops[0]:g} (projections "
-          f"{want - n_pops}, lif_step {n_pops}), run_batched {ops[2]:g}, old "
-          f"route {ops[1]:g}; device "
+          f"{want - n_pops}, lif_step {n_pops}), run_batched {ops[1]:g}; device "
           f"launches a run_device launch of {steps} steps {launches[0]} (constant "
-          f"{launches[0] - ops[0] * steps:g}), old route {launches[1]}; lif_step "
+          f"{launches[0] - ops[0] * steps:g}); lif_step "
           f"launches {counts['lif_step']}, "
           f"lif_update {counts['lif_update']}, host waits {waits}")
 
 
 def time_serving(net, name, rep, batch, card):
-    """One served micro-batch through run_device with the population step
-    beside the route it replaced, in the same run: host time per launch
-    (ends in a sync; in turns new, old, old, new), the same launch's device
-    time (captured once as a CUDA graph and replayed, so no host time is in
-    it), and the device kernels that make it up."""
-    launch, launch_old, _ = launch_pair(net, rep, batch)
+    """One served micro-batch through run_device: host time per launch (ends
+    in a sync), the same launch's device time (captured once as a CUDA graph
+    and replayed, so no host time is in it), and the device kernels that
+    make it up; run_batched's replies held bitwise to run_device's."""
+    launch, launch_batched = launch_pair(net, rep, batch)
     x, vs = batch
-    require(same_replies(launch(), launch_old()),
-            f"serve {name}: the population step and the old route differ")
-    dt, (dt_a, dt_b), do, (do_a, do_b) = in_turns(launch, launch_old)
-    # device time in turns too, new, old, old, new
-    devs = [device_ms(fn, iters=1, replays=20)
-            for fn in (launch, launch_old, launch_old, launch)]
-    dev, dev_old = (devs[0] + devs[3]) / 2, (devs[1] + devs[2]) / 2
+    require(same_replies(launch(), launch_batched()),
+            f"serve {name}: run_device and run_batched differ")
+    dt = host_ms(launch)
+    dev = device_ms(launch, iters=1, replays=20)
     steps = x.shape[0]
     print(f"serve timing [{card}]: {name} micro-batch of {len(vs)} "
-          f"({steps} steps): population step {dt:.3f} ms per launch ({dt_a:.3f}, "
-          f"{dt_b:.3f}), {dt / steps * 1e3:.1f} us per step, "
+          f"({steps} steps): population step {dt:.3f} ms per launch, "
+          f"{dt / steps * 1e3:.1f} us per step, "
           f"{int(vs.sum()) / dt * 1e3:,.0f} request-steps/s, device "
-          f"{dev:.3f} ms ({devs[0]:.3f}, {devs[3]:.3f}), busy share {dev / dt:.3f}; "
-          f"old route {do:.3f} ms ({do_a:.3f}, {do_b:.3f}), {do / steps * 1e3:.1f} "
-          f"us per step, device {dev_old:.3f} ms ({devs[1]:.3f}, {devs[2]:.3f}), "
-          f"busy share {dev_old / do:.3f}; host time "
-          f"{100 * (dt / do - 1):+.1f}%")
+          f"{dev:.3f} ms, busy share {dev / dt:.3f}")
     total, n, top = profiled_ms(launch)
-    total_o, n_o, _ = profiled_ms(launch_old)
     print(f"serve profile [{card}]: {name}: device {total:.3f} ms in {n} "
-          f"launches (old route {total_o:.3f} ms in {n_o}); top: {top}")
+          f"launches; top: {top}")
 
 
 # -- 8. the cerebellum scaffold ------------------------------------------------------
@@ -1738,7 +1641,7 @@ def scaffold_compile(n, sc, t_build, compiled):
     names = [e.name for e in net.projections]
     wdm = {names[i]: tuple(exe.params[i][0].shape)
            for i, m in enumerate(exe.metas) if m.paradigm == "parallel"}
-    ell = {names[i]: tuple(exe._sparse_param(i)[0].shape)
+    ell = {names[i]: tuple(exe._form_operands(i, "sparse")[0].shape)
            for i, f in enumerate(f8) if f == "sparse"}
     serial = [m.paradigm == "serial" for m in exe.metas]
     require(wdm == SCAFFOLD_SHAPES[n]["wdm"] and ell == SCAFFOLD_SHAPES[n]["ell"],
@@ -2152,7 +2055,7 @@ def scaffold_kernels(n, exe, x8, card):
             )
             row("spike_wdm_project", edge, [m, k, MICRO_BATCH, depth], t, err)
         elif form == "sparse":
-            val, idx = exe._sparse_param(i)
+            val, idx = exe._form_operands(i, "sparse")
             r, lanes = val.shape
             x = spikes((MICRO_BATCH, meta.n_source)).float().t()
             out, ref = sparse_gather(val, idx, x), sparse_gather_ref(val, idx, x)
@@ -2202,7 +2105,7 @@ def scaffold_kernels(n, exe, x8, card):
         for i, form in enumerate(exe.temporal_forms(MICRO_BATCH, SCAFFOLD_STEPS)):
             if form != "temporal_sparse":
                 continue
-            val, idx = exe._sparse_param(i)
+            val, idx = exe._form_operands(i, "sparse")
             n_src = exe.metas[i].n_source
             view = spikes((SCAFFOLD_STEPS, MICRO_BATCH, n_src)).float().permute(
                 2, 0, 1).reshape(n_src, cols)
@@ -2226,7 +2129,7 @@ def scaffold_kernels(n, exe, x8, card):
             continue
         meta = exe.metas[i]
         x_t = spikes((1, meta.n_source)).float()
-        w, d, s, tg, row_ptr = exe._event_param(i)
+        w, d, s, tg, row_ptr = exe._form_operands(i, "event")
         kw = dict(delay_range=meta.delay_range, n_target=meta.n_target)
         driven = functools.partial(serial_update, w, d, s, tg, row_ptr, x_t, 3,
                                    **kw)
@@ -3652,7 +3555,7 @@ def mesh_rank(rank, world, case_path, out_dir):
             if not is_sharded(specs[0], mesh):
                 continue
             m = exe.metas[i]
-            if kind == "event" and m.paradigm == "parallel":
+            if kind == "wdm":
                 wdm, src, dly = exe.params[i]
                 ring = (torch.rand((xs.shape[1] // data, m.ring_depth, m.n_source),
                                    device=CARD, generator=gen) < 0.2
@@ -3662,8 +3565,8 @@ def mesh_rank(rank, world, case_path, out_dir):
                          for t in range(m.ring_depth + 2))
                 res["operands"].append(("spike_wdm_project", tag, i,
                                         tuple(wdm.shape), ok))
-            elif kind == "event" and i in exe._event:
-                rows, row_ptr = exe.params[i], exe._event[i]
+            elif kind == "rows" and (i, kind) in exe._operands:
+                *rows, row_ptr = exe._operands[(i, kind)]
                 x = (torch.rand((xs.shape[1] // data, m.n_source), device=CARD,
                                 generator=gen) < 0.2).float()
                 kw = dict(d_slots=m.delay_range + 1, n_target=m.n_target)
@@ -3673,7 +3576,7 @@ def mesh_rank(rank, world, case_path, out_dir):
                 res["operands"].append(("event_scatter", tag, i,
                                         tuple(rows[0].shape), ok))
             elif kind == "sparse":
-                val, idx = exe._sparse[i]
+                val, idx = exe._operands[(i, kind)]
                 x = (torch.rand((xs.shape[1] // data, m.n_source), device=CARD,
                                 generator=gen) < 0.2).float().t()
                 ok = torch.equal(sparse_gather(val, idx, x),
@@ -4645,7 +4548,7 @@ def path_shapes(net, reports, batch):
                 par.append((*exe.params[i], max(1, meta.delay_range),
                             meta.n_source))
             elif form == "sparse":
-                val, idx = exe._sparse_param(i)
+                val, idx = exe._form_operands(i, "sparse")
                 ell.append((val, idx, meta.n_source))
     return sorted(lif), sorted(wdm), ell, par, sorted(step)
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .core.layer import SNNNetwork
-from .core.runtime.executor import LayerMeta, NetworkExecutable, _graph_plan
+from .core.runtime.executor import NetworkExecutable, _graph_plan, _layer_meta
 from .core.switching import CompileReport
 from .device import resolve_device
 
@@ -82,21 +82,8 @@ def executable_from_operands(
         # np.array copies: the reference hands over read-only buffers
         arrays = [np.array(a, dt) for a, dt in zip(ops, _DTYPES[paradigm])]
         _check_ranges(i, paradigm, arrays, layer)
-        tensors = tuple(torch.as_tensor(a, device=dev) for a in arrays)
-        tgt = plan.proj_tgt[i]
-        metas.append(
-            LayerMeta(
-                paradigm=paradigm,
-                n_source=layer.n_source,
-                n_target=layer.n_target,
-                delay_range=layer.delay_range,
-                alpha=plan.pop_alpha[tgt],
-                v_th=plan.pop_vth[tgt],
-                n_rows=int(tensors[0].shape[0] if paradigm == "serial"
-                           else tensors[1].shape[0]),
-            )
-        )
-        params.append(tensors)
+        params.append(tuple(torch.as_tensor(a, device=dev) for a in arrays))
+        metas.append(_layer_meta(plan, i, layer, params[-1]))
     return NetworkExecutable(
         tuple(metas), params, name=getattr(net, "name", "snn"),
         plan=plan, report=report, device=dev,

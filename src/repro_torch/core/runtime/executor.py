@@ -21,8 +21,10 @@ structure on the CUDA card:
   train), so a spike crossing a back-edge of synaptic delay ``d`` arrives
   ``d + 1`` steps after emission.
 
-Each projection runs its paradigm's projection half: a parallel edge its
-whole current
+Each projection runs the projection half of its kernel form, and
+:data:`_FORMS` is the one table of what the executor knows of a form: the
+operands it runs on, how they are built and placed, and the half it calls
+— a parallel edge its whole current
 (:func:`~repro_torch.core.runtime.parallel_runtime.parallel_project`), a
 serial edge the update half of its form
 (:func:`~repro_torch.core.runtime.serial_runtime.serial_update` and its
@@ -70,7 +72,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,7 +84,7 @@ from ...distributed import exchange
 from ...distributed import sharding as shardlib
 from ...kernels import add_launch_counts, launch_counts
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
-from ..cost_model import DEFAULT_SERIAL_BATCH_COST, SerialBatchCostModel
+from ..cost_model import DEFAULT_SERIAL_BATCH_COST
 from ..layer import LIFParams, SNNNetwork
 from ..parallel_compiler import ParallelProgram
 from ..serial_compiler import SerialProgram
@@ -216,24 +218,6 @@ def _graph_plan(net: SNNNetwork) -> GraphPlan:
     )
 
 
-def _chain_plan(metas: Tuple[LayerMeta, ...]) -> GraphPlan:
-    """The feed-forward chain plan (for handles built without a network)."""
-    n = len(metas) + 1
-    return GraphPlan(
-        pop_sizes=(metas[0].n_source,) + tuple(m.n_target for m in metas),
-        input_pops=(0,),
-        input_slices=((0, metas[0].n_source),),
-        update_order=tuple(range(1, n)),
-        pop_alpha=(0.0,) + tuple(m.alpha for m in metas),
-        pop_vth=(1.0,) + tuple(m.v_th for m in metas),
-        in_edges=((),) + tuple((i,) for i in range(len(metas))),
-        proj_src=tuple(range(len(metas))),
-        proj_tgt=tuple(range(1, n)),
-        proj_back=(False,) * len(metas),
-        back_sources=(),
-    )
-
-
 def _layer_params(exe) -> Tuple[torch.Tensor, ...]:
     """The operand tensors of one lowered layer."""
     if isinstance(exe, SerialExecutable):
@@ -241,18 +225,22 @@ def _layer_params(exe) -> Tuple[torch.Tensor, ...]:
     return (exe.wdm_stack, exe.col_source, exe.col_delay)
 
 
-def _param_axes(meta: LayerMeta, form: str) -> Tuple[Tuple, ...]:
-    """Logical-axis names per operand tensor (for ``snn_rules`` placement)."""
-    if meta.paradigm == "serial":
-        if form == "dense":
-            return ((None, None, "neurons"),)      # (d_slots, S, T)
-        if form == "sparse":
-            # ELL rows are (delay_slot, target) pairs — the target-neuron
-            # axis in disguise
-            return (("neurons", None), ("neurons", None))  # ell_val, ell_idx
-        return (("rows",),) * 4                    # weight/delay/src/tgt
-    # parallel: wdm_stack (n_target, C), col_source (C,), col_delay (C,)
-    return (("neurons", "cols"), ("cols",), ("cols",))
+def _layer_meta(plan: GraphPlan, i: int, layer, ops) -> LayerMeta:
+    """Projection ``i``'s static facts: sizes and delay range from ``layer``
+    (a network's layer, or its lowered executable), its target's LIF
+    constants from ``plan``, and its event volume from its lowered operands
+    ``ops``: four row arrays (serial) or the WDM stack and its columns'
+    sources and delays (parallel)."""
+    tgt = plan.proj_tgt[i]
+    return LayerMeta(
+        paradigm="serial" if len(ops) == 4 else "parallel",
+        n_source=layer.n_source,
+        n_target=layer.n_target,
+        delay_range=layer.delay_range,
+        alpha=plan.pop_alpha[tgt],
+        v_th=plan.pop_vth[tgt],
+        n_rows=int(ops[-1].shape[0]),        # rows | WDM columns
+    )
 
 
 class _Halo:
@@ -325,10 +313,124 @@ def _init_graph_carry(
     return proj, pop_v, pop_z
 
 
-_SERIAL_UPDATES = {
-    "event": serial_update,
-    "sparse": serial_update_sparse,
-    "dense": serial_update_dense,
+# -- the kernel forms -----------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _Kind:
+    """One kind of form operand: its name (the operand cache's and the
+    placement specs' key), the logical axes ``snn_rules`` places its
+    tensors by, and ``build(exe, i)``, which gives layer ``i``'s operands
+    of this kind as this rank holds them."""
+
+    name: str
+    axes: Tuple[Tuple, ...]
+    build: Callable
+
+
+def _serial_exe(meta: LayerMeta, rows) -> SerialExecutable:
+    """A serial layer's whole lowered rows as the runtime's executable."""
+    return SerialExecutable(
+        n_source=meta.n_source, n_target=meta.n_target,
+        delay_range=meta.delay_range,
+        row_weight=rows[0], row_delay=rows[1], row_src=rows[2], row_tgt=rows[3],
+        lif=LIFParams(alpha=meta.alpha, v_th=meta.v_th),
+    )
+
+
+def _indexed_rows(exe, i):
+    """The rows this rank holds and their index by source, ``row_ptr``
+    (:func:`source_major_index`, which reorders the rows source-major in
+    place).  The index exists wherever the rows are on the card, whole or
+    a rank's slab (whose partial update the launch completes as the
+    sweep's); on the CPU it is None and the rows are swept."""
+    p = exe.params[i]
+    if p[0].device.type != "cuda":
+        return (*p, None)
+    return (*p, source_major_index(*p, n_source=exe.metas[i].n_source))
+
+
+def _delay_stacked(exe, i):
+    """The ``(d_slots, S, T)`` weights: a serial layer's rows folded, or a
+    parallel layer's WDM stack scattered back into the same layout on the
+    host (integer accumulation — exact)."""
+    meta, whole = exe.metas[i], exe._whole[i]
+    if meta.paradigm == "serial":
+        w = dense_serial_weights(_serial_exe(meta, whole))
+    else:
+        wdm, col_src, col_dly = (a.cpu().numpy() for a in whole)
+        w = np.zeros((meta.delay_range + 1, meta.n_source, meta.n_target),
+                     np.float32)
+        np.add.at(w, (col_dly, col_src), wdm.T.astype(np.float32))
+    return exe._place(i, _DENSE, torch.as_tensor(w))
+
+
+def _ell(exe, i):
+    """A serial layer's ELL operands ``(ell_val, ell_idx)``."""
+    val, idx = sparse_serial_operands(_serial_exe(exe.metas[i], exe._whole[i]))
+    return exe._place(i, _SPARSE, torch.as_tensor(val), torch.as_tensor(idx))
+
+
+#: a serial layer's lowered rows (weight, delay, source, target), as
+#: placed, and their index by source
+_ROWS = _Kind("rows", (("rows",),) * 4, _indexed_rows)
+#: a parallel layer's lowered WDM stack (n_target, C), its columns' sources
+#: and delays, as placed
+_WDM = _Kind("wdm", (("neurons", "cols"), ("cols",), ("cols",)),
+             lambda exe, i: exe.params[i])
+_DENSE = _Kind("dense", ((None, None, "neurons"),), _delay_stacked)
+#: ELL rows are (delay_slot, target) pairs — the target-neuron axis in
+#: disguise
+_SPARSE = _Kind("sparse", (("neurons", None), ("neurons", None)), _ell)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Form:
+    """Everything the executor knows of one kernel form: the operands it
+    runs on, the operand dim a mesh slab splits, the result dim to gather
+    from the slabs (None: sum their partial results), and its projection
+    half.  A step form's ``project(ops, meta, x, complete, state, t)`` gives
+    :func:`lif_step` an edge; a whole-train form's ``project(ops, meta, x,
+    complete)`` the ``(T, B, n_target)`` current."""
+
+    kind: _Kind
+    split: int
+    gather: int | None
+    project: Callable
+
+
+def _ring_edge(update):
+    """A serial step form's projection half: its update into the ring."""
+    def project(ops, meta, x, complete, ring, t):
+        upd, shift = update(*ops, x, t, delay_range=meta.delay_range,
+                            n_target=meta.n_target, complete=complete)
+        return RingEdge(ring, upd, shift)
+    return project
+
+
+def _current_edge(ops, meta, x, complete, hist, t):
+    """The parallel step form's projection half: the current at ``t``."""
+    _, i_e = parallel_project(*ops, hist, x, t, complete=complete)
+    return CurrentEdge(i_e)
+
+
+def _train_dense(ops, meta, x, complete):
+    return temporal_project_dense(*ops, x, complete=complete)
+
+
+def _train_sparse(ops, meta, x, complete):
+    return temporal_project_sparse(*ops, x, delay_range=meta.delay_range,
+                                   n_target=meta.n_target, complete=complete)
+
+
+#: Form name -> :class:`_Form`.  The names are what :meth:`~NetworkExecutable.
+#: serial_forms` ("-" a parallel edge) and :meth:`~NetworkExecutable.
+#: temporal_forms` return and ``report.serial_forms`` records.
+_FORMS = {
+    "-": _Form(_WDM, 0, 1, _current_edge),                 # -> (B, N)
+    "event": _Form(_ROWS, 0, None, _ring_edge(serial_update)),
+    "dense": _Form(_DENSE, 2, 2, _ring_edge(serial_update_dense)),
+    "sparse": _Form(_SPARSE, 0, 0, _ring_edge(serial_update_sparse)),
+    "temporal": _Form(_DENSE, 2, 2, _train_dense),
+    "temporal_sparse": _Form(_SPARSE, 0, 0, _train_sparse),
 }
 
 
@@ -348,28 +450,27 @@ def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
     return (steps[:, None] < valid_steps[None, :]).to(spikes.dtype)[:, :, None]
 
 
-def _event_rows(metas, forms) -> int:
-    """Synaptic rows the event form sweeps a step (a lane): those of every
-    projection the launch runs in the event form."""
-    return sum(m.n_rows for m, f in zip(metas, forms) if f == "event")
-
-
-def _count_event_steps(forms, params, steps: int) -> None:
-    """Count the launch's event-form projection-steps by how they run:
-    ``event_driven`` where the operands carry the rows' index by source
-    (the kernel walks the fired sources' rows), ``event_swept`` where they
-    do not (the CPU sweeps every row).  Projections another rank runs
-    have no operands here and are not counted."""
-    event = [p for f, p in zip(forms, params) if f == "event" and p is not None]
-    driven = sum(p[4] is not None for p in event)
+def _mark_scan(scan, graph: str, metas, forms, params, steps: int) -> None:
+    """Set ``executor.scan``'s attributes: ``graph`` (eager, capture or
+    replay) and ``event_rows``, the synaptic rows of every projection the
+    launch runs in the event form (a lane, a step); count its event-form
+    projection-steps by how they run: ``event_driven`` where the operands
+    carry the rows' index by source (the kernel walks the fired sources'
+    rows), ``event_swept`` where they do not (the CPU sweeps every row).
+    Projections another rank runs have no operands here and are not
+    counted."""
+    event = [i for i, f in enumerate(forms) if _FORMS[f].kind is _ROWS]
+    scan.set(graph=graph, event_rows=sum(metas[i].n_rows for i in event))
+    held = [params[i] for i in event if params[i] is not None]
+    driven = sum(p[-1] is not None for p in held)
     trace.count("event_driven", steps * driven)
-    trace.count("event_swept", steps * (len(event) - driven))
+    trace.count("event_swept", steps * (len(held) - driven))
 
 
 def _scan_network(
     plan: GraphPlan,
     metas: Tuple[LayerMeta, ...],
-    forms: Tuple[str, ...],       # per proj: "event" | "sparse" | "dense" | "-"
+    forms: Tuple[str, ...],       # per proj: a key of _FORMS
     params: List[Tuple[torch.Tensor, ...]],
     states,                       # _init_graph_carry output (updated in place)
     spikes: torch.Tensor,         # (T, B, n_input) f32
@@ -419,12 +520,12 @@ def _scan_network(
             (batch, plan.pop_sizes[s]), dtype=torch.float32,
             device=spikes.device,
         )
+    project = [_FORMS[f].project for f in forms]
     with trace.span("executor.scan", steps=T) as scan:
         if scan:
-            scan.set(graph="capture" if spikes.is_cuda
-                     and torch.cuda.is_current_stream_capturing() else "eager",
-                     event_rows=_event_rows(metas, forms))
-            _count_event_steps(forms, params, T)
+            _mark_scan(scan, "capture" if spikes.is_cuda
+                       and torch.cuda.is_current_stream_capturing() else "eager",
+                       metas, forms, params, T)
         launched = sum(launch_counts().values()) if scan else 0
         for t in range(T):
             x_t = spikes[t]
@@ -437,21 +538,12 @@ def _scan_network(
                 if halo is None or halo.owns(p):
                     edges = []
                     for ei in plan.in_edges[p]:
-                        meta = metas[ei]
                         src = plan.proj_src[ei]
                         x = prev_out[src] if plan.proj_back[ei] else pop_out[src]
-                        if meta.paradigm == "serial":
-                            upd, shift = _SERIAL_UPDATES[forms[ei]](
-                                *params[ei], x, t, delay_range=meta.delay_range,
-                                n_target=meta.n_target, complete=complete[ei],
-                            )
-                            edges.append(RingEdge(proj_states[ei], upd, shift))
-                        else:
-                            _, i_e = parallel_project(
-                                *params[ei], proj_states[ei], x, t,
-                                complete=complete[ei],
-                            )
-                            edges.append(CurrentEdge(i_e))
+                        edges.append(project[ei](
+                            params[ei], metas[ei], x, complete[ei],
+                            proj_states[ei], t,
+                        ))
                     # delivery, sum, fire, int8 carry and f32 spike row: one
                     # launch
                     pop_out[p] = lif_step(
@@ -578,16 +670,9 @@ def _temporal_network(
         if halo is None or halo.owns(p):
             i_full = None                                # (T, B, n) current
             for ei in plan.in_edges[p]:
-                meta = metas[ei]
-                x = pop_out[plan.proj_src[ei]]
-                if forms[ei] == "temporal_sparse":
-                    i_e = temporal_project_sparse(
-                        *params[ei], x, delay_range=meta.delay_range,
-                        n_target=meta.n_target, complete=complete[ei],
-                    )
-                else:
-                    i_e = temporal_project_dense(
-                        params[ei][0], x, complete=complete[ei])
+                i_e = _FORMS[forms[ei]].project(
+                    params[ei], metas[ei], pop_out[plan.proj_src[ei]],
+                    complete[ei])
                 i_full = i_e if i_full is None else i_full + i_e
             z, iters, residual = temporal_lif(
                 i_full, alpha=plan.pop_alpha[p], v_th=plan.pop_vth[p],
@@ -683,18 +768,16 @@ class NetworkExecutable:
         params: List[Tuple[torch.Tensor, ...]],
         name: str = "snn",
         *,
-        plan: GraphPlan | None = None,
+        plan: GraphPlan,
         report: CompileReport | None = None,
-        cost_model: SerialBatchCostModel | None = None,
         device=None,
     ):
         self.metas = tuple(metas)
         self.params = list(params)
         self.name = name
         self.device = resolve_device(device)
-        #: The application-graph execution plan; a plain chain when the
-        #: handle was constructed from bare metas.
-        self.plan = plan or (_chain_plan(self.metas) if self.metas else None)
+        #: The application-graph execution plan.
+        self.plan = plan
         #: Serving-layer routing tag: the registered model name this
         #: handle serves (set by ``network_executable(..., model=...)``).
         self.model: str | None = None
@@ -702,11 +785,9 @@ class NetworkExecutable:
         #: their serial kernel-form decisions into ``report.serial_forms``.
         self.report = report
         #: Crossover model deciding the serial form per batch.
-        self.cost_model = cost_model or DEFAULT_SERIAL_BATCH_COST
-        self._dense = {}     # layer index -> (d_slots, S, T) dense operand
-        self._sparse = {}    # layer index -> (ell_val, ell_idx) ELL operands
-        self._event = {}     # layer index -> row_ptr, the rows' source index
-        self._temporal = {}  # layer index -> parallel WDM as (d_slots, S, T)
+        self.cost_model = DEFAULT_SERIAL_BATCH_COST
+        #: The form operands, ``(layer, kind) -> operands`` (:data:`_FORMS`)
+        self._operands: Dict[Tuple[int, str], Tuple] = {}
         self._nonneg = {}    # layer index -> all weights >= 0
         self._tplan = None   # cached TemporalPlan
         #: The whole operands, which the form operands are built from: the
@@ -762,23 +843,8 @@ class NetworkExecutable:
             zip(net.layers, report.layers)
         ):
             exe = get_layer_executable(compiled, layer.lif, device=dev)
-            tgt = plan.proj_tgt[i]
-            metas.append(
-                LayerMeta(
-                    paradigm=compiled.paradigm,
-                    n_source=exe.n_source,
-                    n_target=exe.n_target,
-                    delay_range=exe.delay_range,
-                    alpha=plan.pop_alpha[tgt],
-                    v_th=plan.pop_vth[tgt],
-                    n_rows=int(
-                        exe.row_weight.shape[0]
-                        if isinstance(exe, SerialExecutable)
-                        else exe.col_source.shape[0]
-                    ),
-                )
-            )
             params.append(_layer_params(exe))
+            metas.append(_layer_meta(plan, i, exe, params[-1]))
         exe = cls(
             tuple(metas), params, name=getattr(net, "name", "snn"),
             plan=plan, report=report, device=dev,
@@ -831,49 +897,6 @@ class NetworkExecutable:
                     )
                 )
         return tuple(forms)
-
-    def _serial_exe(self, i: int) -> SerialExecutable:
-        meta, p = self.metas[i], self._whole[i]
-        return SerialExecutable(
-            n_source=meta.n_source, n_target=meta.n_target,
-            delay_range=meta.delay_range,
-            row_weight=p[0], row_delay=p[1], row_src=p[2], row_tgt=p[3],
-            lif=LIFParams(alpha=meta.alpha, v_th=meta.v_th),
-        )
-
-    def _dense_param(self, i: int) -> Tuple[torch.Tensor, ...]:
-        """The layer's dense-form operand, built once and cached."""
-        w = self._dense.get(i)
-        if w is None:
-            (w,) = self._place(i, "dense", torch.as_tensor(
-                dense_serial_weights(self._serial_exe(i))))
-            self._dense[i] = w
-        return (w,)
-
-    def _event_param(self, i: int) -> Tuple[torch.Tensor, ...]:
-        """The layer's event-form operands and their index by source, built
-        once and cached (this rank's rows reordered source-major in place).
-        The index exists wherever the rows are on the card, whole or a
-        rank's slab (whose partial update the launch completes as the
-        sweep's); on the CPU it is None and the rows are swept."""
-        p = self.params[i]
-        if p[0].device.type != "cuda":
-            return (*p, None)
-        row_ptr = self._event.get(i)
-        if row_ptr is None:
-            row_ptr = source_major_index(*p, n_source=self.metas[i].n_source)
-            self._event[i] = row_ptr
-        return (*p, row_ptr)
-
-    def _sparse_param(self, i: int) -> Tuple[torch.Tensor, ...]:
-        """The layer's ELL (sparse-form) operands, built once and cached."""
-        ell = self._sparse.get(i)
-        if ell is None:
-            val, idx = sparse_serial_operands(self._serial_exe(i))
-            ell = self._place(
-                i, "sparse", torch.as_tensor(val), torch.as_tensor(idx))
-            self._sparse[i] = ell
-        return ell
 
     # -- temporal-parallel structure and forms -------------------------------
     def _weights_nonneg(self, i: int) -> bool:
@@ -959,37 +982,19 @@ class NetworkExecutable:
                 )
         return tuple(forms)
 
-    def _temporal_param(self, i: int) -> Tuple[torch.Tensor, ...]:
-        """The whole-train dense operand: the serial dense (d_slots, S, T)
-        weights verbatim, or the parallel WDM stack scattered back into
-        the same delay-stacked layout on the host (integer accumulation —
-        exact), moved to the device once and cached."""
-        meta = self.metas[i]
-        if meta.paradigm == "serial":
-            return self._dense_param(i)
-        w = self._temporal.get(i)
-        if w is None:
-            wdm, col_src, col_dly = (a.cpu().numpy() for a in self._whole[i])
-            w_np = np.zeros(
-                (meta.delay_range + 1, meta.n_source, meta.n_target),
-                np.float32,
-            )
-            np.add.at(w_np, (col_dly, col_src), wdm.T.astype(np.float32))
-            (w,) = self._place(i, "temporal", torch.as_tensor(w_np))
-            self._temporal[i] = w
-        return (w,)
+    def _form_operands(self, i: int, form: str) -> Tuple:
+        """Layer ``i``'s operands for ``form``: those of its kind, built
+        once and cached."""
+        kind = _FORMS[form].kind
+        ops = self._operands.get((i, kind.name))
+        if ops is None:
+            ops = self._operands[(i, kind.name)] = kind.build(self, i)
+        return ops
 
     def _params_for(self, forms: Tuple[str, ...]) -> List[Tuple]:
-        per_form = {
-            "event": self._event_param,
-            "dense": self._dense_param,
-            "sparse": self._sparse_param,
-            "temporal": self._temporal_param,
-            "temporal_sparse": self._sparse_param,
-        }
         # a projection another rank runs has no operands here
         return [
-            per_form[form](i) if form in per_form and p is not None else p
+            None if p is None else self._form_operands(i, form)
             for i, (form, p) in enumerate(zip(forms, self.params))
         ]
 
@@ -1093,7 +1098,8 @@ class NetworkExecutable:
         # card; form operands are built from the whole and placed the same
         self._whole = [tuple(t.cpu() for t in p) for p in whole]
         self.params = [
-            self._place(i, "event", *p) for i, p in enumerate(self._whole)
+            self._place(i, _ROWS if m.paradigm == "serial" else _WDM, *p)
+            for i, (m, p) in enumerate(zip(self.metas, self._whole))
         ]
         return self
 
@@ -1104,10 +1110,7 @@ class NetworkExecutable:
         self._mesh_pl = None
         self._assigned = None
         self._specs.clear()
-        self._dense.clear()
-        self._sparse.clear()
-        self._event.clear()
-        self._temporal.clear()
+        self._operands.clear()
         self._tplan = None
         self._entries.clear()
 
@@ -1146,18 +1149,14 @@ class NetworkExecutable:
         return batch * sum(self.plan.pop_sizes[p] * len(d)
                            for p, d in dsts.items())
 
-    def _place(self, i: int, kind: str, *tensors):
+    def _place(self, i: int, kind: _Kind, *tensors):
         """This rank's blocks of layer ``i``'s ``kind`` operands (whole
         without a mesh), on the card; records their specs."""
         pl = self._mesh_pl
         if pl is None:
             return tuple(t.to(self.device) for t in tensors)
-        # the whole-train operand of a parallel layer has the serial dense
-        # form's (d_slots, S, T) layout and axes
-        axes = (_param_axes(self.metas[i], kind) if kind != "temporal"
-                else ((None, None, "neurons"),))
-        specs = tuple(pl.spec(ax, t.shape) for ax, t in zip(axes, tensors))
-        self._specs[(i, kind)] = specs
+        specs = tuple(pl.spec(ax, t.shape) for ax, t in zip(kind.axes, tensors))
+        self._specs[(i, kind.name)] = specs
         return tuple(
             shardlib.local_shard(t, spec, pl.mesh, pl.coord).to(self.device)
             for t, spec in zip(tensors, specs)
@@ -1171,26 +1170,15 @@ class NetworkExecutable:
             return [None] * len(forms)
         out = []
         for i, form in enumerate(forms):
-            serial = self.metas[i].paradigm == "serial"
-            # (operand kind, its split dim, the result's dim to gather;
-            # None: sum the partial results)
-            kind, dim, res_dim = {
-                "-": ("event", 0, 1),             # WDM rows -> (B, N)
-                "event": ("event", 0, None),      # rows -> partial update
-                "dense": ("dense", 2, 2),         # (d, S, N) -> (d, B, N)
-                "sparse": ("sparse", 0, 0),       # ELL rows -> (R, B)
-                "temporal_sparse": ("sparse", 0, 0),
-                "temporal": ("dense" if serial else "temporal", 2, 2),
-            }[form]
-            part = self._specs[(i, kind)][0][dim]
-            group = pl.group(part)
+            f = _FORMS[form]
+            group = pl.group(self._specs[(i, f.kind.name)][0][f.split])
             if group is None:
                 out.append(None)
-            elif res_dim is None:
+            elif f.gather is None:
                 out.append(partial(exchange.all_reduce, group=group))
             else:
                 out.append(partial(exchange.all_gather_cat, group=group,
-                                   dim=res_dim))
+                                   dim=f.gather))
         return out
 
     def _batch_group(self, batch: int):
@@ -1236,31 +1224,39 @@ class NetworkExecutable:
         return whole
 
     # -- launch paths --------------------------------------------------------
-    def _inputs(self, spikes, valid_steps):
-        """The launch's inputs as tensors on the device; counts
-        ``h2d_bytes``, the bytes of each taken from a host array."""
-        with trace.span("executor.inputs") as sp:
-            host = spikes
-            spikes = torch.as_tensor(spikes, dtype=torch.float32, device=self.device)
-            if spikes.ndim != 3 or spikes.shape[2] != self.n_input:
+    def _input_shape(self, spikes, valid_steps) -> Tuple[int, int]:
+        """``(T, B)`` of a launch's inputs; raises unless the train is
+        ``(T, B, n_input)`` and ``valid_steps`` None or ``(B,)``."""
+        shape = tuple(np.shape(spikes))
+        if len(shape) != 3 or shape[2] != self.n_input:
+            raise ValueError(
+                f"spikes must be (T, B, {self.n_input}); got {shape}")
+        if valid_steps is not None:
+            got = tuple(np.shape(valid_steps))
+            if got != shape[1:2]:
                 raise ValueError(
-                    f"spikes must be (T, B, {self.n_input}); got {tuple(spikes.shape)}"
-                )
-            if sp:
-                trace.count("h2d_bytes", _host_bytes(host, spikes))
-            if valid_steps is not None:
-                host = valid_steps
-                valid_steps = torch.as_tensor(
-                    valid_steps, dtype=torch.int32, device=self.device
-                )
-                if valid_steps.shape != (spikes.shape[1],):
-                    raise ValueError(
-                        f"valid_steps must be ({spikes.shape[1]},); "
-                        f"got {tuple(valid_steps.shape)}"
-                    )
+                    f"valid_steps must be ({shape[1]},); got {got}")
+        return shape[0], shape[1]
+
+    def _inputs(self, spikes, valid_steps, graph: _LaunchGraph | None = None):
+        """The launch's inputs on the device: copied into ``graph``'s
+        buffers, or into fresh tensors without one.  Counts ``h2d_bytes``,
+        the bytes of each taken from a host array, the same either way."""
+        bufs = (None, None) if graph is None else (graph.spikes,
+                                                   graph.valid_steps)
+        out = []
+        with trace.span("executor.inputs") as sp:
+            for src, dtype, buf in zip((spikes, valid_steps),
+                                       (torch.float32, torch.int32), bufs):
+                if src is None:
+                    out.append(None)
+                    continue
+                dst = (torch.as_tensor(src, dtype=dtype, device=self.device)
+                       if buf is None else buf.copy_(torch.as_tensor(src)))
                 if sp:
-                    trace.count("h2d_bytes", _host_bytes(host, valid_steps))
-            return spikes, valid_steps
+                    trace.count("h2d_bytes", _host_bytes(src, dst))
+                out.append(dst)
+        return tuple(out)
 
     def run_device(
         self,
@@ -1307,32 +1303,37 @@ class NetworkExecutable:
         return self._launch("vmap", spikes, valid_steps, serial_form)
 
     def _launch(self, path, spikes, valid_steps, serial_form):
-        if self._graphs:
-            key = self._graph_key(spikes, valid_steps, serial_form)
-            graph = self._graphs.get(key)
-            if graph is not None:
-                return self._replay(path, key[0], graph, spikes, valid_steps)
-        spikes, valid_steps = self._inputs(spikes, valid_steps)
+        """One launch on ``path`` ("fused" | "vmap"): its forms worked out
+        and its inputs copied in once, its forms and entry recorded, then
+        the captured graph of its key replayed, or the step loop run."""
+        steps, batch = self._input_shape(spikes, valid_steps)
+        forms = self.serial_forms(batch, serial_form)
+        key = (forms, steps, batch, valid_steps is not None)
+        graph = self._graphs.get(key)
+        spikes, valid_steps = self._inputs(spikes, valid_steps, graph)
         with trace.span("executor.prepare"):
-            forms = self.serial_forms(spikes.shape[1], serial_form)
-            self._record_forms(path, spikes.shape[1], forms)
+            self._record_forms(path, batch, forms)
             self._entries.add((path, forms, None))
-            shape = tuple(spikes.shape[:2])
-            if self._graphable():
-                self._eager_keys.add((forms, *shape, valid_steps is not None))
-            spikes, valid_steps, group = self._local_batch(spikes, valid_steps)
-            states = _init_graph_carry(
-                self.plan, self.metas, spikes.shape[1], self.device
-            )
-            params = self._params_for(forms)
-            halo = self._halo()
-            completions = self._completions(forms)
+            if graph is None:
+                if self._graphable():
+                    self._eager_keys.add(key)
+                spikes, valid_steps, group = self._local_batch(
+                    spikes, valid_steps)
+                states = _init_graph_carry(
+                    self.plan, self.metas, spikes.shape[1], self.device
+                )
+                params = self._params_for(forms)
+                halo = self._halo()
+                completions = self._completions(forms)
+        if graph is not None:
+            return self._replay(graph, forms)
         outs = _scan_network(
             self.plan, self.metas, forms, params, states, spikes,
             valid_steps, completions, halo,
         )
         with trace.span("executor.check"):
-            return self._checked(self._whole_trains(outs, group, halo, shape))
+            return self._checked(
+                self._whole_trains(outs, group, halo, (steps, batch)))
 
     def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
         """Set :attr:`last_check` from the per-population trains and
@@ -1352,17 +1353,6 @@ class NetworkExecutable:
         operand whole on this rank and no rank to exchange with."""
         return (self.device.type == "cuda" and self._mesh_pl is None
                 and self._assigned is None)
-
-    def _graph_key(self, spikes, valid_steps, serial_form):
-        """The graph key of a launch of these inputs; None where their
-        shapes fit no graph (the eager launch then raises on them)."""
-        shape = tuple(np.shape(spikes))
-        if len(shape) != 3 or shape[2] != self.n_input:
-            return None
-        if valid_steps is not None and tuple(np.shape(valid_steps)) != shape[1:2]:
-            return None
-        return (self.serial_forms(shape[1], serial_form), shape[0], shape[1],
-                valid_steps is not None)
 
     def capture_graph(self, steps: int, batch: int) -> int:
         """Capture each launch of a ``(steps, batch, n_input)`` train that
@@ -1432,30 +1422,18 @@ class NetworkExecutable:
         self._graphs.clear()
         self._eager_keys.clear()
 
-    def _replay(self, path, forms, g: _LaunchGraph, spikes, valid_steps):
-        """A launch that replays ``g``: the inputs copied into its buffers
-        (the same copies and bytes as an eager launch's), the launch's
-        bookkeeping, and clones of what it wrote, so that a later replay
-        overwrites nothing a caller holds.  Waits for the card nowhere."""
-        with trace.span("executor.inputs") as sp:
-            g.spikes.copy_(torch.as_tensor(spikes))
-            if sp:
-                trace.count("h2d_bytes", _host_bytes(spikes, g.spikes))
-            if g.valid_steps is not None:
-                g.valid_steps.copy_(torch.as_tensor(valid_steps))
-                if sp:
-                    trace.count("h2d_bytes",
-                                _host_bytes(valid_steps, g.valid_steps))
-        steps, batch = g.spikes.shape[:2]
-        with trace.span("executor.prepare"):
-            self._record_forms(path, batch, forms)
-            self._entries.add((path, forms, None))
+    def _replay(self, g: _LaunchGraph, forms) -> Tuple[torch.Tensor, ...]:
+        """Replay ``g``, whose buffers hold the launch's inputs: its kernel
+        launches counted, and clones of what it wrote returned, so that a
+        later replay overwrites nothing a caller holds.  Waits for the card
+        nowhere."""
+        steps = g.spikes.shape[0]
         with trace.span("executor.scan", steps=steps) as scan:
             g.graph.replay()
             if scan:
-                scan.set(graph="replay", event_rows=_event_rows(self.metas, forms))
+                _mark_scan(scan, "replay", self.metas, forms,
+                           self._params_for(forms), steps)
                 trace.count("kernel_launches", sum(g.launches.values()))
-                _count_event_steps(forms, self._params_for(forms), steps)
         add_launch_counts(g.launches)
         self.graph_replays += 1
         with trace.span("executor.check"):
@@ -1489,8 +1467,8 @@ class NetworkExecutable:
         """
         if not self.metas:
             return ()
+        steps, batch = self._input_shape(spikes, valid_steps)
         spikes, valid_steps = self._inputs(spikes, valid_steps)
-        steps, batch = int(spikes.shape[0]), int(spikes.shape[1])
         forms = self.temporal_forms(batch, steps, serial_form)
         self._record_forms("temporal", batch, forms)
         cap = int(max_iters) if max_iters else steps + 1

@@ -339,12 +339,13 @@ def test_shard_assignment_records_placement_and_keeps_outputs():
     exe = network_executable(tn, report, device="cpu")
     assert_trains_equal(exe.run(spikes), want, "before")
     exe.run(spikes, serial_form="sparse")
-    assert exe._sparse and exe.jit_entries() == 2
+    assert ("sparse" in {k for _, k in exe._operands}
+            and exe.jit_entries() == 2)
     ids = [tuple(map(id, p)) for p in exe.params]
     assert exe.shard(assignment=da) is exe
     assert report.placement is da
     assert [tuple(map(id, p)) for p in exe.params] == ids   # one device
-    assert not exe._sparse and exe._tplan is None and exe.jit_entries() == 0
+    assert not exe._operands and exe._tplan is None and exe.jit_entries() == 0
     assert_trains_equal(exe.run(spikes), want, "after")
     assert_trains_equal(exe.run(spikes, batched=True), want, "after, batched")
     short = dataclasses.replace(da, proj_device=da.proj_device[:-1])

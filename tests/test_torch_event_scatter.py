@@ -203,6 +203,7 @@ def test_the_executor_sweeps_on_the_cpu_and_leaves_the_rows_as_lowered():
     want = exe.run_device(x, serial_form="dense")
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert exe._event == {}
+    assert [ops[4] for (_, kind), ops in exe._operands.items()
+            if kind == "rows"] == [None, None]
     for p, q in zip(exe.params, rows):
         assert all(torch.equal(a, b) for a, b in zip(p, q))

@@ -152,10 +152,12 @@ def rank_main(argv):
                 case["counts"][path] = exchange.exchange_counts()
             case["shards"] = {(i, "event"): [t.numpy() for t in p]
                               for i, p in enumerate(exe.params)}
-            for kind, cache in (("dense", exe._dense), ("sparse", exe._sparse),
-                                ("temporal", exe._temporal)):
-                for i, ops in cache.items():
-                    ops = ops if isinstance(ops, tuple) else (ops,)
+            # under the reference's names: it keeps a parallel layer's
+            # whole-train (d_slots, S, T) operand apart as "temporal"
+            for (i, kind), ops in exe._operands.items():
+                if kind in ("dense", "sparse"):
+                    if kind == "dense" and exe.metas[i].paradigm == "parallel":
+                        kind = "temporal"
                     case["shards"][(i, kind)] = [t.numpy() for t in ops]
             case["split"] = any(is_sharded(spec, mesh)
                                 for specs in exe._specs.values()

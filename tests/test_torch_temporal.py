@@ -290,7 +290,7 @@ def test_temporal_projections_match_reference():
     rexe = RR.network_executable(rnet, rrep)
     x = fixture_spikes("iter-sparse", pnet.n_input)
     meta = pexe.metas[0]
-    val, idx = pexe._sparse_param(0)
+    val, idx = pexe._form_operands(0, "sparse")
     rval, ridx = rexe._sparse_param(0)
     sparse = PR.temporal_project_sparse(
         val, idx, torch.from_numpy(x), delay_range=meta.delay_range,
@@ -299,7 +299,7 @@ def test_temporal_projections_match_reference():
         rval, ridx, jnp.asarray(x), delay_range=meta.delay_range,
         n_target=meta.n_target))
     np.testing.assert_array_equal(sparse, want)
-    (w,) = pexe._dense_param(0)
+    (w,) = pexe._form_operands(0, "dense")
     dense = PR.temporal_project_dense(w, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(dense, want)
     np.testing.assert_array_equal(
