@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-``nvcc``; exits non-zero, printing no result, without them.  Fourteen
+``nvcc``; exits non-zero, printing no result, without them.  Fifteen
 phases, none of which is caught and swallowed:
 
 1. **Build.**  Compile the six CUDA sources from ``src/repro_torch/csrc``
@@ -212,6 +212,18 @@ phases, none of which is caught and swallowed:
    event of the spikes given.  Phase 8 also times each event-form edge of
    the scaffold driven and swept.  Alone: ``python3 -c "import chip_smoke as
    c; print(c.event_phase(c.card_line()))"`` (~40 s).
+15. **K2's two designs** (``spike_wdm_project``: the latency design, a
+   warp a row and lane, and the streamed design, the map read once a call
+   for every lane).  The full-scale microcircuit's 11 parallel projections
+   (the maps within the dense cap, each drawn alone as
+   ``build_microcircuit(1.0, seed=0)`` draws it), compiled parallel and
+   lowered on the card: both designs bitwise the plain version at B 1 and
+   t 0..9; one step's 11 calls timed as one graph in each design, in turns,
+   beside the benchmark's counted bound, and each streamed call's device
+   time in that step.  The scaffold's K2 maps at B 8, before (latency) and
+   after (the routed design), and the threshold's sweep of both designs
+   from 19 KB to 8 MB at B 1 and 8.  Alone: ``python3 -c "import
+   chip_smoke as c; print(c.wdm_phase(c.card_line()))"``.
 
 Earlier lines print the kernels' launch counts on each served path, their
 times (CUDA events) beside the plain versions' and a library call's, and
@@ -2160,20 +2172,9 @@ def l23e_projection():
     """The microcircuit's largest projection, L2/3E -> L2/3E at full scale
     (20,683 x 20,683, p 0.1009: 43.2 M synapses), drawn as
     ``build_microcircuit(1.0, seed=0)`` draws it (its projection 0)."""
-    from repro_torch.core.layer import SparseProjection
-    from repro_torch.scaffold.microcircuit import MICROCIRCUIT as spec
-    from repro_torch.scaffold.microcircuit import bernoulli_pairs
+    from repro_torch.scaffold.microcircuit import microcircuit_projection
 
-    n, p = spec.sizes[0], spec.p[0][0]
-    rng = np.random.default_rng([0, 0])
-    indptr, indices = bernoulli_pairs(rng, n, n, p)
-    mag = np.clip(np.rint(rng.normal(*spec.w_exc, len(indices))), 1, 127)
-    delays = np.clip(np.rint(rng.normal(*spec.d_exc, len(indices))), 1,
-                     spec.delay_range).astype(np.int64)
-    return SparseProjection(
-        n_source=n, n_target=n, indptr=indptr, indices=indices, values=mag,
-        delay_values=delays, delay_range=spec.delay_range, name="L23E->L23E",
-        pre="L23E", post="L23E")
+    return microcircuit_projection(0)
 
 
 def event_phase(card):
@@ -2228,6 +2229,181 @@ def event_phase(card):
     del exe, swept, rows
     torch.cuda.empty_cache()
     return row
+
+
+#: phase 15: the (M, K) maps of K2's threshold sweep, 19 KB to 8 MB:
+#: gesture's map, then rows of 1,024 and of 8,192 columns (tall and wide)
+WDM_SWEEP = [(20, 965), (64, 1024), (128, 1024), (256, 1024), (512, 1024),
+             (1024, 1024), (2048, 1024), (4096, 1024), (8192, 1024),
+             (16, 8192), (32, 8192), (64, 8192), (128, 8192), (256, 8192),
+             (512, 8192), (1024, 8192)]
+
+
+def wdm_bound_ms(m, k, batch):
+    """K2's least time as the benchmark counts it: the map once, its two
+    int32 column tables, a ring byte a column and lane, the f32 current."""
+    n_bytes = m * k + 8 * k + batch * k + 4 * batch * m
+    return bound_ms(n_bytes, 2 * m * k * batch, INT8_OPS_S)[0]
+
+
+def microcircuit_maps():
+    """The full-scale microcircuit's parallel projections (the 11 within
+    the dense cap: the benchmark's classifier tenant compiles them
+    parallel), each drawn alone as ``build_microcircuit(1.0, seed=0)``
+    draws it, compiled parallel and lowered on the card."""
+    from repro_torch.core.layer import DENSE_ELEMENT_CAP
+    from repro_torch.core.parallel_compiler import compile_parallel
+    from repro_torch.core.runtime.parallel_runtime import lower_parallel
+    from repro_torch.scaffold.microcircuit import (
+        MICROCIRCUIT, microcircuit_edges, microcircuit_projection,
+    )
+
+    sizes = dict(zip(MICROCIRCUIT.populations, MICROCIRCUIT.sizes))
+    sizes["ext"] = sum(MICROCIRCUIT.sizes)
+    maps = []
+    for k, (pre, post, _) in enumerate(microcircuit_edges()):
+        if sizes[pre] * sizes[post] <= DENSE_ELEMENT_CAP:
+            proj = microcircuit_projection(k)
+            maps.append((proj.name, lower_parallel(compile_parallel(proj),
+                                                   device=CARD)))
+    return maps
+
+
+def wdm_phase(card):
+    """Phase 15: K2's two designs.  (a) The microcircuit's 11 parallel maps
+    as lowered, at B 1 (a ring of depth 4 at 8 Hz): both designs bitwise
+    the plain version at t 0..9; one step's 11 calls replayed as one CUDA
+    graph in each design, in turns, beside the step's counted bound, and
+    each streamed call's device time in that sequence (the profiler), so
+    that no map is read warm from the L2 of its own last call.  (b) The
+    scaffold's K2 maps at B 8: both designs bitwise, timed alone (warm)
+    before (latency) and after (the design the threshold routes them to).
+    (c) The threshold sweep: both designs over WDM_SWEEP at B 1 and 8,
+    alone.  Returns the ``kernels`` rows of the streamed design."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.spike_wdm_matmul import (
+        spike_wdm_project_ref, wdm_design,
+    )
+    from repro_torch.kernels.spike_wdm_matmul.ops import STREAM_MIN_BYTES, _project
+
+    t0 = time.perf_counter()
+    maps = microcircuit_maps()
+    require(len(maps) == 11, f"wdm: {len(maps)} microcircuit maps within the cap")
+    gen = torch.Generator(device=CARD).manual_seed(15)
+    calls = []
+    for name, exe in maps:
+        m, k = exe.wdm_stack.shape
+        depth = max(1, exe.delay_range)
+        ring = (torch.rand((1, depth, exe.n_source), generator=gen, device=CARD)
+                < 0.008).to(torch.int8)
+        ops = (exe.wdm_stack, exe.col_source, exe.col_delay, ring)
+        require(wdm_design(m, k, 1) == "streamed",
+                f"wdm: {name} ({m}, {k}) is not routed to the streamed design")
+        for t in range(10):
+            ref = spike_wdm_project_ref(*ops, t)
+            for design in ("latency", "streamed"):
+                require(torch.equal(_project(design, *ops, t), ref),
+                        f"wdm: the {design} design differs on {name} at t {t}")
+        calls.append((name, m, k, ops))
+    print(f"wdm [{card}]: the microcircuit's parallel maps, lowered in "
+          f"{time.perf_counter() - t0:.1f} s, both designs bitwise the plain "
+          f"version at t 0..9: {[(n, m, k) for n, m, k, _ in calls]}")
+
+    def step(design):
+        return lambda: [_project(design, *ops, 5) for _, _, _, ops in calls]
+
+    bound = sum(wdm_bound_ms(m, k, 1) for _, m, k, _ in calls)
+    turns = [(d, device_ms(step(d), iters=5, replays=20))
+             for d in ("latency", "streamed", "streamed", "latency")]
+    ms = {d: min(t for e, t in turns if e == d) for d in ("latency", "streamed")}
+    print(f"wdm timing [{card}]: the microcircuit's 11 K2 calls of a step at B 1 "
+          f"(one graph, in turns {[(d, round(t, 5)) for d, t in turns]}): latency "
+          f"{ms['latency']:.5f} ms, streamed {ms['streamed']:.5f} ms, bound "
+          f"{bound:.5f} ms (bytes): {100 * bound / ms['streamed']:.1f} % of it "
+          f"streamed, {100 * bound / ms['latency']:.1f} % latency; "
+          f"{ms['latency'] / ms['streamed']:.2f}x")
+    graph = torch.cuda.CUDAGraph()
+    fn = step("streamed")
+    fn()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    # each call's device time in the step, from the profiler (which can
+    # drop activity records: a replay's calls are read only when it kept
+    # them all)
+    replays = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if "wdm_kernel<true" in e.name
+                      and str(e.device_type).upper().endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    require(all("streamed::" in e.name for e in kernels),
+            "wdm: a microcircuit map ran the latency design in the step")
+    rows = [{"name": "spike_wdm_project", "design": "streamed", "route": "cuda",
+             "source": "src/repro_torch/csrc/spike_wdm_matmul.cu",
+             "replaces": REPLACES["spike_wdm_project"], "max_abs_err": 0.0,
+             "edge": "the microcircuit's 11 parallel maps, a step",
+             "shape": [[m, k] for _, m, k, _ in calls], "ms": ms["streamed"],
+             "latency_design_ms": ms["latency"], "bound_ms": bound,
+             "bound_by": "bytes"}]
+    if len(kernels) != replays * len(calls):
+        print(f"wdm timing [{card}]: the profiler kept {len(kernels)} of "
+              f"{replays * len(calls)} calls; no time a call")
+    for i, (name, m, k, ops) in enumerate(calls):
+        if len(kernels) != replays * len(calls):
+            break
+        us = [kernels[j].time_range.elapsed_us() for j in range(i, len(kernels),
+                                                                len(calls))]
+        t_ms, b = float(np.median(us)) / 1e3, wdm_bound_ms(m, k, 1)
+        print(f"wdm timing [{card}]: {name} ({m}, {k}) B 1 streamed in the step: "
+              f"{t_ms:.5f} ms, bound {b:.6f} ms (bytes), {100 * b / t_ms:.1f} %, "
+              f"{m * k / t_ms / 1e9:.3f} TB/s of map")
+        rows.append({**rows[0], "edge": name, "shape": [m, k, 1, 4], "ms": t_ms,
+                     "bound_ms": b})
+        del rows[-1]["latency_design_ms"]
+    del calls, maps, graph
+    torch.cuda.empty_cache()
+
+    def both(m, k, batch, seed):
+        ops = project_inputs(m, k, batch, 4, max(k, 1), seed)
+        for t in range(9):
+            ref = spike_wdm_project_ref(*ops, t)
+            for design in ("latency", "streamed"):
+                require(torch.equal(_project(design, *ops, t), ref),
+                        f"wdm: the {design} design differs at ({m}, {k}, {batch}), t {t}")
+        turns = [(d, device_ms(lambda d=d: _project(d, *ops, 5)))
+                 for d in ("latency", "streamed", "streamed", "latency")]
+        return {d: min(t for e, t in turns if e == d) for d in ("latency", "streamed")}
+
+    for n, shapes in SCAFFOLD_SHAPES.items():
+        for edge, (m, k) in shapes["wdm"].items():
+            t = both(m, k, MICRO_BATCH, m + k)
+            routed = wdm_design(m, k, MICRO_BATCH)
+            print(f"wdm timing [{card}]: scaffold {n} {edge} ({m}, {k}) B "
+                  f"{MICRO_BATCH} alone: before (latency) {t['latency']:.5f} ms, "
+                  f"after ({routed}) {t[routed]:.5f} ms, bound "
+                  f"{wdm_bound_ms(m, k, MICRO_BATCH):.6f} ms; the routed design no "
+                  f"slower: {t[routed] <= t['latency']}")
+    faster = {}
+    for batch in (1, MICRO_BATCH):
+        for m, k in WDM_SWEEP:
+            t = both(m, k, batch, m * k + batch)
+            faster[(m * k, batch)] = faster.get((m * k, batch), True) and (
+                t["streamed"] < t["latency"])
+            print(f"wdm sweep [{card}]: ({m}, {k}) {m * k} B at B {batch}: latency "
+                  f"{t['latency']:.5f} ms, streamed {t['streamed']:.5f} ms, routed "
+                  f"{wdm_design(m, k, batch)}")
+    wins = sorted(b for (b, _), f in faster.items()
+                  if all(faster[(c, bb)] for (c, bb) in faster if c >= b))
+    print(f"wdm sweep [{card}]: the streamed design is faster at every swept map "
+          f"from {wins[0] if wins else None} B at B 1 and 8; the threshold is "
+          f"{STREAM_MIN_BYTES} B")
+    return rows
 
 
 def scaffold_engine(sc, rep, exe, card):
@@ -4848,6 +5024,11 @@ def main() -> int:
     event_row["launches"] = launches["event_scatter"] + m_counts.get(
         "event_scatter", 0)
     rows.append(event_row)
+
+    lap("15. K2's two designs")
+    # 15. K2's streamed design at the microcircuit's maps and the scaffold's,
+    # against the latency design, and the threshold's sweep
+    rows += wdm_phase(card)
     lap("end")
     print(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"scaffold": s_json}))

@@ -84,6 +84,7 @@ from ...distributed import exchange
 from ...distributed import sharding as shardlib
 from ...kernels import add_launch_counts, launch_counts
 from ...kernels.lif_update import CurrentEdge, RingEdge, lif_step
+from ...kernels.spike_wdm_matmul import wdm_design
 from ..cost_model import DEFAULT_SERIAL_BATCH_COST
 from ..layer import LIFParams, SNNNetwork
 from ..parallel_compiler import ParallelProgram
@@ -450,21 +451,31 @@ def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
     return (steps[:, None] < valid_steps[None, :]).to(spikes.dtype)[:, :, None]
 
 
-def _mark_scan(scan, graph: str, metas, forms, params, steps: int) -> None:
+def _mark_scan(scan, graph: str, metas, forms, params, steps: int,
+               batch: int) -> None:
     """Set ``executor.scan``'s attributes: ``graph`` (eager, capture or
     replay) and ``event_rows``, the synaptic rows of every projection the
     launch runs in the event form (a lane, a step); count its event-form
     projection-steps by how they run: ``event_driven`` where the operands
     carry the rows' index by source (the kernel walks the fired sources'
-    rows), ``event_swept`` where they do not (the CPU sweeps every row).
-    Projections another rank runs have no operands here and are not
-    counted."""
+    rows), ``event_swept`` where they do not (the CPU sweeps every row);
+    and, on the card, its parallel projection-steps by the K2 design their
+    map's shape picks at ``batch`` lanes (``wdm_streamed``,
+    ``wdm_latency``; the CPU's plain version counts neither).  Projections
+    another rank runs have no operands here and are not counted."""
     event = [i for i, f in enumerate(forms) if _FORMS[f].kind is _ROWS]
     scan.set(graph=graph, event_rows=sum(metas[i].n_rows for i in event))
     held = [params[i] for i in event if params[i] is not None]
     driven = sum(p[-1] is not None for p in held)
     trace.count("event_driven", steps * driven)
     trace.count("event_swept", steps * (len(held) - driven))
+    maps = [params[i][0] for i, f in enumerate(forms) if _FORMS[f].kind is _WDM
+            and params[i] is not None and params[i][0].is_cuda
+            and params[i][0].numel() > 0]
+    if maps:
+        streamed = sum(wdm_design(*w.shape, batch) == "streamed" for w in maps)
+        trace.count("wdm_streamed", steps * streamed)
+        trace.count("wdm_latency", steps * (len(maps) - streamed))
 
 
 def _scan_network(
@@ -525,7 +536,7 @@ def _scan_network(
         if scan:
             _mark_scan(scan, "capture" if spikes.is_cuda
                        and torch.cuda.is_current_stream_capturing() else "eager",
-                       metas, forms, params, T)
+                       metas, forms, params, T, batch)
         launched = sum(launch_counts().values()) if scan else 0
         for t in range(T):
             x_t = spikes[t]
@@ -1432,7 +1443,7 @@ class NetworkExecutable:
             g.graph.replay()
             if scan:
                 _mark_scan(scan, "replay", self.metas, forms,
-                           self._params_for(forms), steps)
+                           self._params_for(forms), steps, g.spikes.shape[1])
                 trace.count("kernel_launches", sum(g.launches.values()))
         add_launch_counts(g.launches)
         self.graph_replays += 1

@@ -10,8 +10,9 @@
 // executor sums.  This is the reference's (M, K) @ (K, N) product,
 // transposed on both sides so that no transpose is ever materialised.
 //
-// The projection (spike_wdm_project_s8) reads stacked row n straight from
-// the (N, d, S) int8 ring through the input merging table:
+// The projection (spike_wdm_project_s8, spike_wdm_stream_s8) reads stacked
+// row n straight from the (N, d, S) int8 ring through the input merging
+// table:
 //
 //   stacked[n, c] = ring[n, floor_mod(t - col_delay[c], d), col_source[c]]
 //
@@ -23,22 +24,29 @@
 // (spike_wdm_matmul_pallas / _matmul_kernel), an MXU product accumulated
 // over a K grid axis in 128/512 tiles.
 //
-// Bound on the H100: at the gesture path's shape, (20, 965) x (965, 8),
-// the operands are ~27 KB and the work 0.3 M int8 MACs, so one launch is
-// latency; at larger shapes the int8 operand bytes bound it long before
-// the int8 tensor cores would.  Around the standalone kernel the parallel
-// projection used to spend about ten eager ops a step (slot arithmetic,
-// an index_select copy of the stacked rows, the cast); the projection
-// entry makes that one launch.
+// Bound on the H100: a call reads the map once, M K bytes, and does 2 M K
+// int8 operations a lane, so up to batch ~295 the map's bytes bound it, not
+// the int8 tensor cores.  Two designs, one entry each; the wrapper picks
+// one by the map's bytes and the batch (ops.py, wdm_design):
 //
-// Design: a warp per (row m of wdm, lane n), 8 warps a block; the block
-// shares lane n's stacked row.  The lane is the grid's y index; the y
-// axis holds at most 65,535 blocks, so above that batch a second variant
-// of the kernel has each block walk the lanes blockIdx.y, blockIdx.y +
-// gridDim.y, ...  (Up to that batch the kernel keeps no loop, so the
-// served shapes run the body as before.)  The operands are a few KB, so
-// the time is the launch and the chains of dependent loads, and the design keeps those
-// chains short.  A tile of 1 KB of K at a time:
+// * The latency design (wdm_kernel<kRing, kLoop, Out>) for small maps: at
+//   the gesture path's shape, (20, 965) x (965, 8), the operands are ~27 KB
+//   and the work 0.3 M int8 MACs, so one launch is latency.  Around the
+//   standalone kernel the parallel projection used to spend about ten eager
+//   ops a step (slot arithmetic, an index_select copy of the stacked rows,
+//   the cast); the projection entry makes that one launch.
+// * The streamed design (streamed::wdm_kernel<kRing, kLanes>, the ring
+//   path only) for maps of megabytes, larger together than the 50 MB L2:
+//   the map is read once a call for every lane.
+//
+// The latency design: a warp per (row m of wdm, lane n), 8 warps a block;
+// the block shares lane n's stacked row.  The lane is the grid's y index;
+// the y axis holds at most 65,535 blocks, so above that batch a second
+// variant of the kernel has each block walk the lanes blockIdx.y,
+// blockIdx.y + gridDim.y, ...  (Up to that batch the kernel keeps no loop,
+// so the served shapes run the body as before.)  The operands are a few
+// KB, so the time is the launch and the chains of dependent loads, and the
+// design keeps those chains short.  A tile of 1 KB of K at a time:
 //   1. each lane loads its 8 words of the warp's WDM row, all at once;
 //      rows start at any byte for odd K, so each word is two aligned 4-byte
 //      loads joined by a funnel shift, masked at the row's end;
@@ -53,6 +61,32 @@
 // 2^14 * K stays in int32 for K < 2^17, and integer addition does not care
 // about the order.  At M 20 and N <= 8 there is no tile for the int8
 // tensor cores to fill.
+//
+// The streamed design (B <= 8 lanes): a block owns a tile of up to 64 rows
+// and a slice of K; the slices of one tile are the blocks of a thread-block
+// cluster.  Rows, split, slice and lanes a row come from the wrapper
+// (ops.py, stream_tiling), chosen so that a call puts two blocks on an SM.
+// On an H100 a block's time is the chain of dependent loads between one of
+// its warps' map reads and the next, so the design keeps the work between
+// them short:
+//   1. The block stages its slice's stacked spikes, every lane's, in shared
+//      memory once a pass (the merging-table and ring loads amortised over
+//      the tile's rows, not 8), while its warps' first map loads fly, and
+//      then 15 copies of them, each a byte further on.
+//   2. A segment of 4 to 32 lanes streams a row, four aligned 16-byte
+//      chunks a lane in flight (__ldcs: evict-first, the map is read once a
+//      step and must not push the event form's rows out of the L2).  A row
+//      starts at any byte for odd K; the spikes of each chunk then start at
+//      an aligned word of one copy, so a chunk is multiplied as it was
+//      loaded: one shared load and four __dp4a a lane of the batch.  An
+//      aligned chunk that holds a byte of the map never crosses a page, and
+//      the bytes around the slice meet staged zeros.
+//   3. A row's sums are reduced across its segment by shuffles into shared
+//      memory; the cluster's blocks then add their partial sums through
+//      distributed shared memory, each block writing a share of the tile's
+//      (B, rows) currents: no atomics, no zero fill, every element written
+//      once, the sums exact and so bitwise those of the latency design.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -174,6 +208,216 @@ static void launch_wdm(const int8_t* wdm, const int8_t* x,
         wdm, x, col_source, col_delay, out, M, K, N, depth, n_source, t);
 }
 
+// ---------------------------------------------------------------------------
+// The streamed design.
+namespace streamed {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxRows = 64;      // rows a block (ops.py's too)
+constexpr int kSpikeBytes = 2048; // columns x lanes staged at a time (ops.py's too)
+constexpr int kUnroll = 4;        // 16-byte chunks a lane has in flight
+constexpr int kShifts = 16;       // copies of the staged spikes, a byte apart
+
+// Grid: (ceil(M / rows) * split) blocks in clusters of `split`; block
+// blockIdx.x is slice blockIdx.x % split (columns [rank * width, + width))
+// of tile blockIdx.x / split.  `slice` (a multiple of 16, at most
+// kSpikeBytes / kLanes - 16) is how many of its columns the block stages at
+// a time, and `lpr` (4, 8, 16 or 32) how many lanes stream a row.  kRing is
+// always true (the standalone matmul keeps the latency design); it keeps
+// K2's ring launches under the one name wdm_kernel<true in a trace.
+//
+// A row's slice starts `mis` bytes into its first aligned 16-byte chunk, so
+// chunk q holds columns 16 q - mis ... 16 q - mis + 15.  Copy s of the
+// staged spikes is the slice's spikes (16 zero columns before it, zeros
+// after) s bytes on, so that the spikes of every chunk start at an aligned
+// 16-byte word of copy (16 - mis) % 16: a lane multiplies each chunk as it
+// was loaded, with one shared load a lane of the batch.
+//
+// At most 64 registers, four blocks an SM: fewer registers spill, more cost
+// occupancy, and either keeps fewer loads in flight.
+template <bool kRing, int kLanes>
+__global__ void __launch_bounds__(kThreads, 4)
+wdm_kernel(const int8_t* __restrict__ wdm, const int8_t* __restrict__ ring,
+           const int32_t* __restrict__ col_source,
+           const int32_t* __restrict__ col_delay, float* __restrict__ out,
+           int M, int K, int N, int depth, int n_source, int64_t t, int rows,
+           int split, int width, int slice, int lpr) {
+  static_assert(kRing, "the streamed design reads the ring");
+  constexpr int kPitch = kSpikeBytes / kLanes + 32;  // bytes of a copy a lane
+  __shared__ __align__(16) int8_t xs[kShifts][kLanes][kPitch];
+  __shared__ int psum[kMaxRows * kLanes];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)(blockIdx.x % split);
+  const int m0 = (int)(blockIdx.x / split) * rows;
+  const int tile_rows = min(rows, M - m0);
+  const int k_begin = min(K, rank * width), k_end = min(K, k_begin + width);
+  const int sl = lane & (lpr - 1), seg = lane / lpr, segs = 32 / lpr;
+  const int step = kWarps * segs;           // rows the block streams at once
+  int tm = (int)(t % depth);
+  if (tm < 0) tm += depth;
+  for (int e = tid; e < kMaxRows * kLanes; e += kThreads) psum[e] = 0;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int c0 = k_begin; c0 < k_end; c0 += slice) {
+    const int len = min(slice, k_end - c0), len16 = (len + 15) & ~15;
+    const int words = (len16 + 32) >> 2;    // words of a copy in use
+    // one turn of a segment: up to kUnroll chunks a lane of row rb + seg
+    // from chunk g0 on, as loaded
+    int r, mis, n_chunks;
+    const uint4* chunk;
+    auto at_row = [&](int rb) {
+      r = rb + seg;
+      const int8_t* p = wdm + (int64_t)(m0 + min(r, tile_rows - 1)) * K + c0;
+      mis = (int)((uintptr_t)p & 15);
+      chunk = reinterpret_cast<const uint4*>(p - mis);
+      n_chunks = r < tile_rows ? (mis + len + 15) >> 4 : 0;
+    };
+    uint4 c[kUnroll];
+    auto load = [&](int g0) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = g0 + u * lpr + sl;
+        c[u] = q < n_chunks ? __ldcs(chunk + q) : zero;
+      }
+    };
+    __syncthreads();                        // the last slice's readers are done
+    const int rb0 = warp * segs;
+    at_row(rb0);
+    load(0);                                // in flight while the spikes stage
+    // 1. copy 0: the slice's stacked spikes after 16 zero columns, 4
+    // columns a thread at a time, their table loads first
+    for (int cb = tid; cb < len16 + 16; cb += 4 * kThreads) {
+      int src[4], slot[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int cc = cb + v * kThreads;
+        if (cc < len) {
+          src[v] = col_source[c0 + cc];
+          int s = tm - col_delay[c0 + cc] % depth;  // floor_mod(t - delay, d)
+          if (s < 0) s += depth;
+          if (s >= depth) s -= depth;
+          slot[v] = s;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int cc = cb + v * kThreads;
+        if (cc >= len16 + 16) continue;
+#pragma unroll
+        for (int n = 0; n < kLanes; ++n)
+          if (n < N)
+            xs[0][n][16 + cc] =
+                cc < len ? ring[((int64_t)n * depth + slot[v]) * n_source + src[v]]
+                         : (int8_t)0;
+      }
+    }
+    if (tid < 16)
+      for (int n = 0; n < N; ++n) xs[0][n][tid] = 0;
+    __syncthreads();
+    // the other copies: a thread takes a word of copy 0 and writes its 15
+    // shifts
+    for (int n = 0; n < N; ++n) {
+      const unsigned* from = reinterpret_cast<const unsigned*>(xs[0][n]);
+      for (int w = tid; w < words; w += kThreads) {
+        unsigned v[5];
+#pragma unroll
+        for (int j = 0; j < 5; ++j) v[j] = w + j < words ? from[w + j] : 0u;
+#pragma unroll
+        for (int s = 1; s < kShifts; ++s)
+          reinterpret_cast<unsigned*>(xs[s][n])[w] =
+              __funnelshift_r(v[s >> 2], v[(s >> 2) + 1], 8u * (unsigned)(s & 3));
+      }
+    }
+    __syncthreads();
+    // 2-3. stream the tile's rows, `step` at a time
+    for (int rb = rb0; rb < tile_rows; rb += step) {
+      if (rb != rb0) at_row(rb);
+      const int shift = (16 - mis) & 15, skip = mis == 0 ? 16 : 0;
+      int acc[kLanes];
+#pragma unroll
+      for (int n = 0; n < kLanes; ++n) acc[n] = 0;
+      for (int g0 = 0; g0 < n_chunks; g0 += kUnroll * lpr) {
+        if (rb != rb0 || g0 != 0) load(g0);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int q = g0 + u * lpr + sl;
+          if (q < n_chunks) {
+#pragma unroll
+            for (int n = 0; n < kLanes; ++n) {
+              if (n < N) {
+                const int4 x4 =
+                    *reinterpret_cast<const int4*>(&xs[shift][n][16 * q + skip]);
+                acc[n] = __dp4a((int)c[u].x, x4.x, acc[n]);
+                acc[n] = __dp4a((int)c[u].y, x4.y, acc[n]);
+                acc[n] = __dp4a((int)c[u].z, x4.z, acc[n]);
+                acc[n] = __dp4a((int)c[u].w, x4.w, acc[n]);
+              }
+            }
+          }
+        }
+      }
+      // segments of one warp may take different turns at a row's end: the
+      // reduction waits for all of them
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < kLanes; ++n)
+        for (int off = lpr >> 1; off > 0; off >>= 1)
+          acc[n] += __shfl_xor_sync(0xffffffffu, acc[n], off);
+      if (r < tile_rows && sl == 0)
+#pragma unroll
+        for (int n = 0; n < kLanes; ++n)
+          if (n < N) psum[r * kLanes + n] += acc[n];
+    }
+  }
+  // 4. the tile's currents, each written once
+  if (split == 1) {
+    __syncthreads();
+    for (int e = tid; e < tile_rows * N; e += kThreads) {
+      const int n = e / tile_rows, r = e - n * tile_rows;
+      out[(int64_t)n * M + m0 + r] = __int2float_rn(psum[r * kLanes + n]);
+    }
+    return;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                           // every block's partial sums
+  for (int e = rank * kThreads + tid; e < tile_rows * N; e += split * kThreads) {
+    const int n = e / tile_rows, r = e - n * tile_rows;
+    int sum = 0;
+    for (int s = 0; s < split; ++s)
+      sum += cluster.map_shared_rank(psum, s)[r * kLanes + n];
+    out[(int64_t)n * M + m0 + r] = __int2float_rn(sum);
+  }
+  cluster.sync();                           // keep psum until all have read
+}
+
+template <int kLanes>
+static cudaError_t launch(const int8_t* wdm, const int8_t* ring,
+                          const int32_t* col_source, const int32_t* col_delay,
+                          float* out, int M, int K, int N, int depth,
+                          int n_source, int64_t t, int rows, int split,
+                          int width, int slice, int lpr, cudaStream_t s) {
+  void (*kernel)(const int8_t*, const int8_t*, const int32_t*, const int32_t*,
+                 float*, int, int, int, int, int, int64_t, int, int, int, int,
+                 int) = wdm_kernel<true, kLanes>;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((M + rows - 1) / rows) * split));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, wdm, ring, col_source, col_delay, out,
+                            M, K, N, depth, n_source, t, rows, split, width,
+                            slice, lpr);
+}
+
+}  // namespace streamed
+
 extern "C" int spike_wdm_matmul_s8(const int8_t* wdm, const int8_t* stacked,
                                    int32_t* out, int M, int K, int N,
                                    void* stream) {
@@ -190,4 +434,22 @@ extern "C" int spike_wdm_project_s8(const int8_t* wdm, const int8_t* ring,
   launch_wdm<true, float>(wdm, ring, col_source, col_delay, out, M, K, N, depth,
                           n_source, t, (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The streamed design at N <= 8 lanes (ops.py, stream_tiling, gives the rest).
+extern "C" int spike_wdm_stream_s8(const int8_t* wdm, const int8_t* ring,
+                                   const int32_t* col_source,
+                                   const int32_t* col_delay, float* out, int M,
+                                   int K, int N, int depth, int n_source,
+                                   int64_t t, int rows, int split, int width,
+                                   int slice, int lpr, void* stream) {
+  cudaError_t (*launch)(const int8_t*, const int8_t*, const int32_t*,
+                        const int32_t*, float*, int, int, int, int, int,
+                        int64_t, int, int, int, int, int, cudaStream_t) =
+      N <= 1 ? streamed::launch<1> : N <= 2 ? streamed::launch<2>
+      : N <= 4 ? streamed::launch<4> : streamed::launch<8>;
+  const cudaError_t err =
+      launch(wdm, ring, col_source, col_delay, out, M, K, N, depth, n_source, t,
+             rows, split, width, slice, lpr, (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

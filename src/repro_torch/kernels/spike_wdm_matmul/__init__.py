@@ -3,4 +3,6 @@ from .ops import (
     spike_wdm_matmul_ref,
     spike_wdm_project,
     spike_wdm_project_ref,
+    stream_tiling,
+    wdm_design,
 )

@@ -63,6 +63,8 @@ __all__ = [
     "MicrocircuitSpec",
     "bernoulli_pairs",
     "build_microcircuit",
+    "microcircuit_edges",
+    "microcircuit_projection",
 ]
 
 
@@ -172,6 +174,49 @@ def _sizes(spec: MicrocircuitSpec, scale: float) -> Dict[str, int]:
     return {"ext": sum(sizes.values()), **sizes}
 
 
+def microcircuit_edges(scale: float = 1.0):
+    """``(pre, post, p)`` of every projection in declaration order (Table
+    5's targets, each target's recurrent sources then ``ext``; ``p`` the
+    connection probability)."""
+    spec = MICROCIRCUIT
+    sizes = _sizes(spec, scale)
+    edges = []
+    for t, post in enumerate(spec.populations):
+        edges += [(pre, post, p) for pre, p in zip(spec.populations, spec.p[t])
+                  if p > 0]
+        edges.append(("ext", post, spec.k_ext[t] * scale / sizes["ext"]))
+    return edges
+
+
+def microcircuit_projection(k: int, scale: float = 1.0, *,
+                            seed: int = 0) -> SparseProjection:
+    """Projection ``k`` of :func:`microcircuit_edges`, drawn from its own
+    stream ``np.random.default_rng([seed, k])`` exactly as
+    :func:`build_microcircuit` draws it, without drawing the others."""
+    spec = MICROCIRCUIT
+    sizes = _sizes(spec, scale)
+    lif = LIFParams(alpha=spec.alpha,
+                    v_th=max(1.0, float(round(spec.v_th * scale))))
+    inhibitory = dict(zip(spec.populations, spec.inhibitory), ext=False)
+    pre, post, p = microcircuit_edges(scale)[k]
+    rng = np.random.default_rng([seed, k])
+    indptr, indices = bernoulli_pairs(rng, sizes[pre], sizes[post], p)
+    if (pre, post) == spec.doubled:
+        w_mean, w_sd = spec.w_doubled
+    else:
+        w_mean, w_sd = spec.w_inh if inhibitory[pre] else spec.w_exc
+    nnz = len(indices)
+    mag = np.clip(np.rint(rng.normal(w_mean, w_sd, nnz)), 1, 127)
+    d_mean, d_sd = spec.d_inh if inhibitory[pre] else spec.d_exc
+    delays = np.clip(np.rint(rng.normal(d_mean, d_sd, nnz)), 1,
+                     spec.delay_range).astype(np.int64)
+    return SparseProjection(
+        n_source=sizes[pre], n_target=sizes[post], indptr=indptr,
+        indices=indices, values=-mag if inhibitory[pre] else mag,
+        delay_values=delays, delay_range=spec.delay_range, lif=lif,
+        name=f"{pre}->{post}", pre=pre, post=post)
+
+
 def build_microcircuit(scale: float = 1.0, *, seed: int = 0) -> Microcircuit:
     """Generate the microcircuit at ``scale`` (1.0: the published sizes).
 
@@ -186,34 +231,9 @@ def build_microcircuit(scale: float = 1.0, *, seed: int = 0) -> Microcircuit:
                     v_th=max(1.0, float(round(spec.v_th * scale))))
     pops = [Population("ext", sizes["ext"])] + [
         Population(name, sizes[name], lif=lif) for name in spec.populations]
-    inhibitory = dict(zip(spec.populations, spec.inhibitory), ext=False)
-    edges = []
-    for t, post in enumerate(spec.populations):
-        edges += [(pre, post, p) for pre, p in zip(spec.populations, spec.p[t])
-                  if p > 0]
-        edges.append(("ext", post, spec.k_ext[t] * scale / sizes["ext"]))
-
-    projs, in_degree = [], {}
-    for k, (pre, post, p) in enumerate(edges):
-        rng = np.random.default_rng([seed, k])
-        indptr, indices = bernoulli_pairs(rng, sizes[pre], sizes[post], p)
-        if (pre, post) == spec.doubled:
-            w_mean, w_sd = spec.w_doubled
-        else:
-            w_mean, w_sd = spec.w_inh if inhibitory[pre] else spec.w_exc
-        nnz = len(indices)
-        mag = np.clip(np.rint(rng.normal(w_mean, w_sd, nnz)), 1, 127)
-        d_mean, d_sd = spec.d_inh if inhibitory[pre] else spec.d_exc
-        delays = np.clip(np.rint(rng.normal(d_mean, d_sd, nnz)), 1,
-                         spec.delay_range).astype(np.int64)
-        name = f"{pre}->{post}"
-        proj = SparseProjection(
-            n_source=sizes[pre], n_target=sizes[post], indptr=indptr,
-            indices=indices, values=-mag if inhibitory[pre] else mag,
-            delay_values=delays, delay_range=spec.delay_range, lif=lif,
-            name=name, pre=pre, post=post)
-        projs.append(proj)
-        in_degree[name] = nnz / sizes[post]
+    projs = [microcircuit_projection(k, scale, seed=seed)
+             for k in range(len(microcircuit_edges(scale)))]
+    in_degree = {e.name: e.n_synapses / e.n_target for e in projs}
     net = SNNNetwork(populations=pops, projections=projs,
                      name=f"microcircuit-{scale:g}-s{seed}")
     return Microcircuit(network=net, spec=spec, scale=scale, seed=seed,

@@ -43,12 +43,15 @@ from repro_torch.kernels.spike_wdm_matmul import (
     spike_wdm_matmul_ref,
     spike_wdm_project,
     spike_wdm_project_ref,
+    wdm_design,
 )
+from repro_torch.kernels.spike_wdm_matmul.ops import _project
 from repro_torch.kernels.ssd_chunk import SSDChunk, ssd_chunk, ssd_chunk_ref
 from test_torch_event_scatter import CASES as EVENT_CASES
 from test_torch_event_scatter import projection as event_projection
 from test_torch_event_scatter import slabs as event_slabs
 from test_torch_event_scatter import spikes as event_spikes
+from test_torch_wdm_design import GESTURE_MAPS, MICROCIRCUIT_MAPS
 
 
 def wdm_operands(m, k, n, seed, p=0.3):
@@ -397,6 +400,123 @@ def test_project_edges_and_refusals(card):
         spike_wdm_project(wdm.T.contiguous().T, src, dly, ring, 3)
     with pytest.raises(ValueError, match=r"\(K,\)"):
         spike_wdm_project(wdm, src[:5], dly, ring, 3)
+
+
+def streamed_equals_ref(ops, ts):
+    """The streamed design, named whatever the shape, against the plain
+    version at each step of ``ts``; returns the last current."""
+    for t in ts:
+        out = _project("streamed", *ops, t)
+        ref = spike_wdm_project_ref(*ops, t)
+        assert out.dtype == torch.float32 and torch.equal(out, ref), f"t={t}"
+    return out
+
+
+def card_operands(card, m, k, batch, depth, n_source, seed):
+    return [torch.from_numpy(a).to(card)
+            for a in project_operands(m, k, batch, depth, n_source, seed)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 8])
+@pytest.mark.parametrize("m,k", MICROCIRCUIT_MAPS)
+def test_streamed_design_at_the_microcircuits_shapes(card, m, k, batch):
+    """Each of the microcircuit's parallel maps as lowered, at the batches
+    the streamed design takes: bitwise the plain version, named and through
+    the wrapper (which picks the streamed design at one lane, the cell's)."""
+    assert wdm_design(m, k, 1) == "streamed"
+    ops = card_operands(card, m, k, batch, 5, 2 * k // 3 + 1, seed=m + k)
+    streamed_equals_ref(ops, [0, 3, 9])
+    assert torch.equal(spike_wdm_project(*ops, 7), spike_wdm_project_ref(*ops, 7))
+
+
+#: (M, K, B, d, S): odd K (rows at every byte), one row over 8 slices, K
+#: below a 16-byte chunk, three lanes, a ring of depth 1, aligned rows, and
+#: a slice staged in two passes
+STREAMED_LAYOUTS = [(37, 1001, 1, 5, 600), (1, 4099, 2, 5, 3000), (300, 7, 8, 5, 9),
+                    (70, 9001, 3, 5, 5000), (129, 515, 8, 1, 700),
+                    (64, 8192, 8, 5, 4096), (50, 301, 1, 2, 400),
+                    (17000, 4501, 2, 5, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,batch,depth,n_source", STREAMED_LAYOUTS)
+def test_streamed_design_at_odd_layouts(card, m, k, batch, depth, n_source):
+    """Ragged rows and slices, each t from 0 past two ring depths: below
+    the largest delay t - delay goes negative (the floor-mod)."""
+    ops = card_operands(card, m, k, batch, depth, n_source, seed=k)
+    out = streamed_equals_ref(ops, range(2 * depth + 1))
+    assert float(out.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3, 5, 8, 15])
+def test_streamed_design_takes_a_map_at_any_byte(card, offset):
+    """A contiguous map view that starts off a 16-byte boundary, and the
+    row slabs a mesh splits off it (their rows start at any byte too)."""
+    m, k = 1065, 2131
+    wdm, src, dly, ring = project_operands(m, k, 2, 5, 1500, seed=offset)
+    base = torch.zeros(wdm.size + 32, dtype=torch.int8, device=card)
+    view = base[offset:offset + wdm.size].view(wdm.shape)
+    view.copy_(torch.from_numpy(wdm))
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    src, dly, ring = (torch.from_numpy(a).to(card) for a in (src, dly, ring))
+    streamed_equals_ref([view, src, dly, ring], [2, 6])
+    for a, b in [(0, 355), (355, 710), (710, m), (3, 4)]:
+        slab = view[a:b]
+        assert slab.is_contiguous()
+        streamed_equals_ref([slab, src, dly, ring], [4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [127, -128])
+def test_streamed_design_does_not_saturate(card, fill):
+    """Full rows of the extreme weights against every spike set: sums of
+    -128 * 36,805, far past int16, exact in int32 and in f32."""
+    m, k, depth = 1065, 36805, 5
+    wdm = torch.full((m, k), fill, dtype=torch.int8, device=card)
+    src = torch.arange(k, dtype=torch.int32, device=card) % 4000
+    dly = torch.ones(k, dtype=torch.int32, device=card)
+    ring = torch.ones((8, depth, 4000), dtype=torch.int8, device=card)
+    out = streamed_equals_ref([wdm, src, dly, ring], [1])
+    assert torch.equal(out, torch.full((8, m), float(fill * k), device=card))
+
+
+@pytest.mark.cuda
+def test_k2_names_and_launches_by_design(card):
+    """One device op a call and no other (no fill, no helper kernel), named
+    ``wdm_kernel<true`` in both designs; gesture's maps keep the latency
+    design's instantiation and a microcircuit map takes the streamed one;
+    a captured streamed launch replays bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [(m, k, 8) for m, k in GESTURE_MAPS] + [(1065, 5210, 1)]
+    for m, k, batch in cases:
+        ops = card_operands(card, m, k, batch, 5, k, seed=k)
+        spike_wdm_project(*ops, 3)                      # build and warm up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = spike_wdm_project(*ops, 3)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
+        assert len(names) == 1 and "wdm_kernel<true" in names[0], names
+        want = ("streamed::wdm_kernel<true, 1>" if wdm_design(m, k, batch) ==
+                "streamed" else "wdm_kernel<true, false, float>")
+        assert want in names[0], names
+        assert torch.equal(out, spike_wdm_project_ref(*ops, 3))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        captured = spike_wdm_project(*ops, 4)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    ops[3].random_(0, 2)                                # new spikes, same ring
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, spike_wdm_project_ref(*ops, 4))
 
 
 @pytest.mark.cuda

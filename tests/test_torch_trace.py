@@ -393,3 +393,33 @@ def test_the_scan_span_counts_driven_event_steps_on_the_card(tracing, card, batc
         assert r.counts["kernel_launches"] > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,design", [([12, 10, 6, 5], "latency"),
+                                          ([2048, 1024, 20], "streamed")])
+def test_the_scan_span_counts_parallel_steps_by_k2_design(tracing, card, sizes,
+                                                          design):
+    """On the card each parallel projection-step counts under the K2 design
+    its map's shape picks, eager, captured and replayed alike: a small map
+    the latency design, a 2048-source map of several MB the streamed one;
+    the replay's trains are the eager launch's."""
+    from repro_torch.kernels.spike_wdm_matmul import wdm_design
+
+    net, report = _net(sizes, "serial" if design == "latency" else "parallel", 3)
+    exe = P.runtime.network_executable(net, report, device=card)
+    maps = [p[0] for p, f in zip(exe.params, exe.serial_forms(1)) if f == "-"]
+    assert len(maps) == 1 and wdm_design(*maps[0].shape, 1) == design
+    x = (np.random.default_rng(2).random((5, 1, sizes[0])) < 0.2).astype(np.float32)
+    trace.enable()
+    want = [z.clone() for z in exe.run_device(x)]
+    assert exe.capture_graph(5, 1) == 1
+    got = exe.run_device(x)
+    scans = [r for r in trace.records() if r.name == "executor.scan"]
+    assert [r.attrs["graph"] for r in scans] == ["eager", "capture", "replay"]
+    streamed = 5 if design == "streamed" else 0
+    for r in scans:
+        assert (r.counts["wdm_streamed"], r.counts["wdm_latency"]) == (
+            streamed, 5 - streamed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
