@@ -1047,6 +1047,7 @@ def time_engine(net, reports, engine, traffic, stats, rps, card):
     loop, bitwise equal, in turns."""
     from repro_torch.core.runtime import network_executable
     from repro_torch.serving import BucketKey, SNNRequest, pad_microbatch
+    from repro_torch.serving.pool import host_arrays as pool_host_arrays
 
     reqs = [SNNRequest(i, sp, 0.0) for i, (_, sp, m, _, _) in enumerate(traffic)
             if 32 < sp.shape[0] <= 64][:MICRO_BATCH]
@@ -1098,7 +1099,11 @@ def time_engine(net, reports, engine, traffic, stats, rps, card):
         with eager_loop(exe):
             return engine.pool.run_microbatch(mb)
 
-    require(same_replies(launch_pool(), launch_pool_eager()),
+    def copied(outs):
+        # a launch's trains are views of the host buffer the next one fills
+        return [torch.from_numpy(a) for a in pool_host_arrays(outs)]
+
+    require(same_replies(copied(launch_pool()), copied(launch_pool_eager())),
             "engine: the pool's replayed launch differs from the eager loop")
     before = engine.pool.counters_by_model()["default"]["graph_replays"]
     pr, (pr_a, pr_b), pe, (pe_a, pe_b) = in_turns(launch_pool, launch_pool_eager)

@@ -35,6 +35,7 @@ from .executor import (
     LayerMeta,
     NetworkExecutable,
     OutputValidationError,
+    PackedTrains,
     get_layer_executable,
     network_executable,
     release_network_executable,
@@ -81,7 +82,7 @@ __all__ = [
     "ParallelExecutable", "lower_parallel", "parallel_project",
     "parallel_step", "run_parallel",
     "GraphPlan", "LayerMeta", "NetworkExecutable",
-    "OutputValidationError", "validate_spike_outputs",
+    "OutputValidationError", "PackedTrains", "validate_spike_outputs",
     "get_layer_executable", "network_executable",
     "release_network_executable", "lowering_counts", "lowering_total",
     "ActivityProfile", "profile_outputs", "profile_run",

@@ -52,6 +52,14 @@ their inputs into the graph's own buffers and replay it, instead of
 enqueuing every step from Python.  Graphs exist only on the card, and only
 for an executable that is not placed over several ranks.
 
+Spikes cross between host and card as 0/1 uint8, one copy each way a
+launch.  A host train goes through the executable's staging buffer (pinned
+on the card) with its valid steps in front, and the loop widens it to
+float32 on the card as it masks it.  The serving pool's launch
+(:meth:`NetworkExecutable.run_packed`) packs every distinct population's
+train and the all-0/1 flag into one uint8 buffer on the card, which one
+copy moves into a pinned host buffer (:class:`PackedTrains`).
+
 :meth:`NetworkExecutable.run_batched` is the serving engine's path for
 full micro-batches: the reference vmaps width-1 scans over the request
 axis, and here the batch axis is already written out, so it runs the same
@@ -443,12 +451,58 @@ def _host_bytes(src, dst: torch.Tensor) -> int:
     return dst.element_size() * dst.numel()
 
 
+def _host(x) -> np.ndarray:
+    """``x`` as a NumPy array on the host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _staged_size(steps: int, batch: int, n_input: int, masked: bool) -> int:
+    """Bytes of a launch's staged inputs: the valid steps (int32), where
+    the launch takes them, then the 0/1 train as uint8."""
+    return (4 * batch if masked else 0) + steps * batch * n_input
+
+
+def _unstage(buf: torch.Tensor, steps: int, batch: int, n_input: int,
+             masked: bool):
+    """``(spikes, valid_steps)`` views of a staged input buffer: the
+    ``(T, B, n_input)`` uint8 train and the ``(B,)`` int32 valid steps
+    (None where the launch takes none)."""
+    at = 4 * batch if masked else 0
+    valid = buf[:at].view(torch.int32) if masked else None
+    return buf[at:].view(steps, batch, n_input), valid
+
+
+def _put_spikes(dst: np.ndarray, spikes) -> None:
+    """Write a host spike train into the uint8 array ``dst``.  A uint8 or
+    bool train is taken as it is; any other dtype must hold only 0 and 1
+    (raises ValueError)."""
+    src = _host(spikes)
+    if src.dtype not in (np.uint8, np.bool_) and not bool(
+            ((src == 0) | (src == 1)).all()):
+        raise ValueError("spikes must be 0/1 spike trains")
+    dst[...] = src
+
+
+def _pack(outs, ok: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Write each population's float32 train, as 0/1 uint8, one after
+    another into ``packed``, and ``ok`` into its last byte.  ``ok`` must
+    be formed from the float32 trains: the cast would hide a value that
+    is neither 0 nor 1."""
+    at = 0
+    for z in outs:
+        packed[at:at + z.numel()].view(z.shape).copy_(z)
+        at += z.numel()
+    packed[at:].copy_(ok)
+    return packed
+
+
 def _live_mask(spikes: torch.Tensor, valid_steps: torch.Tensor | None):
-    """(T, B, 1) 0/1 mask of the live steps of each batch slot, or None."""
+    """(T, B, 1) float32 0/1 mask of the live steps of each batch slot, or
+    None."""
     if valid_steps is None:
         return None
     steps = torch.arange(spikes.shape[0], device=spikes.device)
-    return (steps[:, None] < valid_steps[None, :]).to(spikes.dtype)[:, :, None]
+    return (steps[:, None] < valid_steps[None, :]).to(torch.float32)[:, :, None]
 
 
 def _mark_scan(scan, graph: str, metas, forms, params, steps: int,
@@ -484,7 +538,7 @@ def _scan_network(
     forms: Tuple[str, ...],       # per proj: a key of _FORMS
     params: List[Tuple[torch.Tensor, ...]],
     states,                       # _init_graph_carry output (updated in place)
-    spikes: torch.Tensor,         # (T, B, n_input) f32
+    spikes: torch.Tensor,         # (T, B, n_input) 0/1 uint8 or f32
     valid_steps: torch.Tensor | None = None,   # (B,) true length per request
     complete=None,                # per proj: a slab's completion, or None
     halo: _Halo | None = None,    # a placement over several ranks
@@ -508,8 +562,8 @@ def _scan_network(
     T, batch = spikes.shape[0], spikes.shape[1]
     complete = complete or [None] * len(metas)
     live = _live_mask(spikes, valid_steps)
-    if live is not None:
-        spikes = spikes * live
+    # widened to float32 in the same pass that masks it
+    spikes = spikes.to(torch.float32) if live is None else spikes * live
 
     proj_states, pop_v, pop_z = states
     vz_slot = {p: k for k, p in enumerate(plan.update_order)}
@@ -645,7 +699,7 @@ def _temporal_network(
     max_iters: int,
     params: List[Tuple[torch.Tensor, ...]],
     states,                      # block carry (updated in place); () if none
-    spikes: torch.Tensor,        # (T, B, n_input) f32
+    spikes: torch.Tensor,        # (T, B, n_input) 0/1 uint8 or f32
     valid_steps: torch.Tensor | None = None,
     complete=None,               # per proj: a slab's completion, or None
     halo: _Halo | None = None,   # a placement over several ranks
@@ -664,8 +718,7 @@ def _temporal_network(
     step-serial block exchanges its rows step by step.
     """
     live = _live_mask(spikes, valid_steps)
-    if live is not None:
-        spikes = spikes * live
+    spikes = spikes.to(torch.float32) if live is None else spikes * live
     complete = complete or [None] * len(metas)
     steps, batch = spikes.shape[0], spikes.shape[1]
 
@@ -733,16 +786,69 @@ def _all_binary(outs, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _LaunchGraph:
-    """One launch shape captured as a CUDA graph: the buffers it reads, the
-    per-population trains and the flag it writes, and the kernel launches
-    of one replay (entry point -> launches)."""
+    """One launch shape captured as a CUDA graph: the staged input buffer
+    it reads (:func:`_unstage`'s views of it: the train and the valid
+    steps), the per-population trains and the flag it writes, the packed
+    uint8 copy of both (:func:`_pack`), and the kernel launches of one
+    replay (entry point -> launches)."""
 
     graph: object                       # torch.cuda.CUDAGraph
-    spikes: torch.Tensor                # (T, B, n_input) f32
-    valid_steps: torch.Tensor | None    # (B,) i32
+    staged: torch.Tensor                # (_staged_size,) u8
+    spikes: torch.Tensor                # (T, B, n_input) u8, a view of staged
+    valid_steps: torch.Tensor | None    # (B,) i32, a view of staged
     outs: Tuple[torch.Tensor, ...]
     ok: torch.Tensor
+    packed: torch.Tensor                # (Σ T·B·n_pop + 1,) u8
     launches: Dict[str, int]
+
+
+class PackedTrains(tuple):
+    """A launch's per-projection spike trains on the host, as 0/1 uint8.
+
+    Entry ``i`` is projection ``i``'s target population's ``(T, B, n)``
+    train (fan-in entries are one tensor), a view of ``host``: one buffer
+    (pinned on the card) that holds every distinct population's train and,
+    in its last byte, the launch's all-0/1 flag (:attr:`check`).  The
+    launch's one copy from the card fills it, and the executable's next
+    launch fills it again: :meth:`arrays` copies it out.
+    """
+
+    def __new__(cls, entries, host: torch.Tensor, done=None):
+        packed = super().__new__(cls, entries)
+        packed.host, packed.done = host, done
+        return packed
+
+    @property
+    def nbytes(self) -> int:
+        return self.host.numel()
+
+    def wait(self) -> None:
+        """Return once the copy from the card has landed."""
+        if self.done is not None:
+            self.done.synchronize()
+
+    @property
+    def check(self) -> torch.Tensor:
+        """The launch's all-0/1 flag, formed from its float32 trains on the
+        device: a fresh host bool scalar."""
+        self.wait()
+        return self.host[-1:].view(torch.bool)[0].clone()
+
+    def arrays(self) -> List[np.ndarray]:
+        """The entries as NumPy arrays, cut from one fresh copy of
+        ``host``; fan-in entries share one array."""
+        self.wait()
+        flat = self.host.numpy().copy()
+        base = self.host.storage_offset()
+        cut: Dict[int, np.ndarray] = {}
+        out = []
+        for z in self:
+            at = z.storage_offset() - base
+            a = cut.get(at)
+            if a is None:
+                a = cut[at] = flat[at:at + z.numel()].reshape(z.shape)
+            out.append(a)
+        return out
 
 
 @dataclasses.dataclass
@@ -830,6 +936,15 @@ class NetworkExecutable:
         self._graphs: Dict[Tuple, _LaunchGraph] = {}
         self._eager_keys = set()
         self.graph_replays = 0
+        #: Host buffers of the launches' copies (pinned on the card, grown
+        #: to the largest launch): the staged inputs and the packed trains
+        #: (:class:`PackedTrains`); on the card, the events that say the
+        #: last copy out of and into each has landed
+        self._staging: torch.Tensor | None = None
+        self._replies: torch.Tensor | None = None
+        card = self.device.type == "cuda"
+        self._staged = torch.cuda.Event() if card else None
+        self._copied_out = torch.cuda.Event() if card else None
 
     def jit_entries(self) -> int:
         """Distinct launch entries this handle has run.
@@ -1250,24 +1365,56 @@ class NetworkExecutable:
         return shape[0], shape[1]
 
     def _inputs(self, spikes, valid_steps, graph: _LaunchGraph | None = None):
-        """The launch's inputs on the device: copied into ``graph``'s
-        buffers, or into fresh tensors without one.  Counts ``h2d_bytes``,
-        the bytes of each taken from a host array, the same either way."""
-        bufs = (None, None) if graph is None else (graph.spikes,
-                                                   graph.valid_steps)
-        out = []
+        """The launch's inputs on the device, ``(spikes, valid_steps)``:
+        in ``graph``'s buffers, or in fresh tensors without one.
+
+        A host train goes over as 0/1 uint8 behind its valid steps, in one
+        copy out of the staging buffer (:meth:`_stage`); a train already on
+        the device is taken as it is (cast to uint8 into a graph's buffer).
+        Counts ``h2d_bytes``, the bytes taken from the host."""
+        masked = valid_steps is not None
         with trace.span("executor.inputs") as sp:
-            for src, dtype, buf in zip((spikes, valid_steps),
-                                       (torch.float32, torch.int32), bufs):
-                if src is None:
-                    out.append(None)
-                    continue
-                dst = (torch.as_tensor(src, dtype=dtype, device=self.device)
-                       if buf is None else buf.copy_(torch.as_tensor(src)))
-                if sp:
-                    trace.count("h2d_bytes", _host_bytes(src, dst))
-                out.append(dst)
-        return tuple(out)
+            if isinstance(spikes, torch.Tensor) and spikes.device == self.device:
+                valid = None if not masked else torch.as_tensor(
+                    valid_steps, dtype=torch.int32, device=self.device)
+                if sp and masked:
+                    trace.count("h2d_bytes", _host_bytes(valid_steps, valid))
+                if graph is None:
+                    return spikes, valid
+                graph.spikes.copy_(spikes)
+                if masked:
+                    graph.valid_steps.copy_(valid)
+                return graph.spikes, graph.valid_steps
+            steps, batch, n_input = np.shape(spikes)
+            n = _staged_size(steps, batch, n_input, masked)
+            host = self._stage(spikes, valid_steps, n)
+            buf = (torch.empty(n, dtype=torch.uint8, device=self.device)
+                   if graph is None else graph.staged)
+            buf.copy_(host, non_blocking=True)
+            if self._staged is not None:
+                self._staged.record(torch.cuda.current_stream(self.device))
+            if sp:
+                trace.count("h2d_bytes", n)
+        return _unstage(buf, steps, batch, n_input, masked)
+
+    def _stage(self, spikes, valid_steps, n: int) -> torch.Tensor:
+        """The first ``n`` bytes of the staging buffer, holding the valid
+        steps (int32) and then the train (uint8, :func:`_put_spikes`); the
+        last copy out of it has landed before they are written."""
+        if self._staging is None or self._staging.numel() < n:
+            self._staging = torch.empty(
+                n, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        elif self._staged is not None:
+            self._staged.synchronize()
+        host = self._staging[:n]
+        flat = host.numpy()
+        at = 0
+        if valid_steps is not None:
+            valid = _host(valid_steps)
+            at = 4 * valid.size
+            flat[:at].view(np.int32)[:] = valid
+        _put_spikes(flat[at:].reshape(np.shape(spikes)), spikes)
+        return host
 
     def run_device(
         self,
@@ -1276,10 +1423,13 @@ class NetworkExecutable:
         valid_steps=None,          # (B,) true steps per request
         serial_form: str = "auto",
     ) -> Tuple[torch.Tensor, ...]:
-        """Per-projection spike trains as device tensors — no host sync.
+        """Per-projection 0/1 float32 spike trains as device tensors — no
+        host sync.
 
         Entry ``i`` is the spike train of projection ``i``'s *target
-        population* (fan-in entries alias one tensor).  Callers that time
+        population* (fan-in entries alias one tensor).  A host train goes
+        to the card as 0/1 uint8 (:meth:`_inputs`): a train of another
+        dtype must hold only 0 and 1 (else ValueError).  Callers that time
         this must ``torch.cuda.synchronize()``.  With ``valid_steps``,
         batch slot ``b`` is masked after its first ``valid_steps[b]``
         timesteps: the live prefix is bit-identical to an unmasked run
@@ -1313,10 +1463,32 @@ class NetworkExecutable:
             return ()
         return self._launch("vmap", spikes, valid_steps, serial_form)
 
-    def _launch(self, path, spikes, valid_steps, serial_form):
+    def run_packed(
+        self,
+        spikes,                    # (T, B, n_input) 0/1 uint8
+        *,
+        valid_steps=None,          # (B,) true steps per request
+        batched: bool = False,
+    ) -> "PackedTrains":
+        """The serving pool's launch: :meth:`run_batched`'s (``batched``)
+        or :meth:`run_device`'s, its trains and flag packed on the card as
+        0/1 uint8 and moved to the host in one copy.
+
+        Returns a :class:`PackedTrains` whose views are whole once the
+        card has finished the launch, and which the next launch of this
+        executable overwrites.  The flag is formed from the float32
+        trains before the cast, and :attr:`last_check` is the device's.
+        """
+        if not self.metas:
+            return PackedTrains((), torch.ones(1, dtype=torch.uint8))
+        path = "vmap" if batched else "fused"
+        return self._launch(path, spikes, valid_steps, "auto", packed=True)
+
+    def _launch(self, path, spikes, valid_steps, serial_form, packed=False):
         """One launch on ``path`` ("fused" | "vmap"): its forms worked out
         and its inputs copied in once, its forms and entry recorded, then
-        the captured graph of its key replayed, or the step loop run."""
+        the captured graph of its key replayed, or the step loop run; with
+        ``packed``, its trains come back as :class:`PackedTrains`."""
         steps, batch = self._input_shape(spikes, valid_steps)
         forms = self.serial_forms(batch, serial_form)
         key = (forms, steps, batch, valid_steps is not None)
@@ -1337,20 +1509,49 @@ class NetworkExecutable:
                 halo = self._halo()
                 completions = self._completions(forms)
         if graph is not None:
-            return self._replay(graph, forms)
+            return self._replay(graph, forms, packed)
         outs = _scan_network(
             self.plan, self.metas, forms, params, states, spikes,
             valid_steps, completions, halo,
         )
         with trace.span("executor.check"):
-            return self._checked(
-                self._whole_trains(outs, group, halo, (steps, batch)))
+            outs = self._whole_trains(outs, group, halo, (steps, batch))
+            if not packed:
+                return self._checked(outs)
+            self.last_check = _all_binary(outs, self.device)
+            buf = torch.empty(self._packed_size(steps, batch),
+                              dtype=torch.uint8, device=self.device)
+            return self._to_host(_pack(outs, self.last_check, buf), outs)
 
     def _checked(self, outs) -> Tuple[torch.Tensor, ...]:
         """Set :attr:`last_check` from the per-population trains and
         return the per-projection view."""
         self.last_check = _all_binary(outs, self.device)
         return self._per_projection(outs)
+
+    def _packed_size(self, steps: int, batch: int) -> int:
+        """Bytes of a launch's packed trains and flag (:func:`_pack`)."""
+        return steps * batch * sum(
+            self.plan.pop_sizes[p] for p in self.plan.update_order) + 1
+
+    def _to_host(self, packed: torch.Tensor, outs) -> PackedTrains:
+        """Enqueue the one copy of ``packed`` into the host buffer, and
+        return its per-projection views (``outs``, the per-population
+        trains packed there, give their shapes)."""
+        n = packed.numel()
+        if self._replies is None or self._replies.numel() < n:
+            self._replies = torch.empty(
+                n, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        host = self._replies[:n]
+        host.copy_(packed, non_blocking=True)
+        if self._copied_out is not None:
+            self._copied_out.record(torch.cuda.current_stream(self.device))
+        trains, at = [], 0
+        for z in outs:
+            trains.append(host[at:at + z.numel()].view(z.shape))
+            at += z.numel()
+        return PackedTrains(self._per_projection(trains), host,
+                            self._copied_out)
 
     def _per_projection(self, outs) -> Tuple[torch.Tensor, ...]:
         """Entry i = projection i's target population's train; fan-in
@@ -1372,12 +1573,14 @@ class NetworkExecutable:
 
         The serving pool calls this for each shape it has marked warm.  A
         launch is keyed by its forms and by whether it took
-        ``valid_steps``; its graph zeroes the carry, masks the input, runs
-        the step loop (:func:`_scan_network`), masks the output trains and
-        forms the all-0/1 flag, reading the train and the valid steps from
-        buffers of its own.  From then on :meth:`run_device` and
-        :meth:`run_batched` of that key copy their inputs there and replay
-        it (the two paths run the same loop, so they share it).  The eager
+        ``valid_steps``; its graph zeroes the carry, widens and masks the
+        input, runs the step loop (:func:`_scan_network`), masks the output
+        trains, forms the all-0/1 flag and packs both as uint8
+        (:func:`_pack`), reading the uint8 train and the valid steps from
+        one staged buffer of its own.  From then on :meth:`run_device`,
+        :meth:`run_batched` and :meth:`run_packed` of that key copy their
+        inputs there and replay it (the paths run the same loop, so they
+        share it).  The eager
         launch first loads the kernels and builds the form operands.
         Nothing is captured off the card or under a placement over several
         ranks.  A graph holds the operands' addresses and the LIF
@@ -1395,10 +1598,12 @@ class NetworkExecutable:
         """One launch of ``forms`` at ``(steps, batch)`` recorded as a CUDA
         graph on a side stream; the launches it holds are not counted."""
         dev = self.device
-        spikes = torch.zeros((steps, batch, self.n_input), dtype=torch.float32,
-                             device=dev)
-        valid = (torch.zeros((batch,), dtype=torch.int32, device=dev)
-                 if masked else None)
+        staged = torch.zeros(
+            _staged_size(steps, batch, self.n_input, masked),
+            dtype=torch.uint8, device=dev)
+        spikes, valid = _unstage(staged, steps, batch, self.n_input, masked)
+        packed = torch.empty(self._packed_size(steps, batch),
+                             dtype=torch.uint8, device=dev)
         params = self._params_for(forms)
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(dev)
@@ -1416,6 +1621,7 @@ class NetworkExecutable:
                     outs = _scan_network(self.plan, self.metas, forms, params,
                                          states, spikes, valid)
                     ok = _all_binary(outs, dev)
+                    _pack(outs, ok, packed)
                 finally:
                     graph.capture_end()
         finally:
@@ -1426,18 +1632,20 @@ class NetworkExecutable:
                         if n != before[k]}
             add_launch_counts({k: -n for k, n in launches.items()})
         torch.cuda.current_stream(dev).wait_stream(side)
-        return _LaunchGraph(graph, spikes, valid, tuple(outs), ok, launches)
+        return _LaunchGraph(graph, staged, spikes, valid, tuple(outs), ok,
+                            packed, launches)
 
     def drop_graphs(self) -> None:
         """Forget every captured graph (and which shapes ran eagerly)."""
         self._graphs.clear()
         self._eager_keys.clear()
 
-    def _replay(self, g: _LaunchGraph, forms) -> Tuple[torch.Tensor, ...]:
+    def _replay(self, g: _LaunchGraph, forms, packed=False):
         """Replay ``g``, whose buffers hold the launch's inputs: its kernel
         launches counted, and clones of what it wrote returned, so that a
-        later replay overwrites nothing a caller holds.  Waits for the card
-        nowhere."""
+        later replay overwrites nothing a caller holds (with ``packed``,
+        the copy of its packed trains to the host, :meth:`_to_host`).
+        Waits for the card nowhere."""
         steps = g.spikes.shape[0]
         with trace.span("executor.scan", steps=steps) as scan:
             g.graph.replay()
@@ -1448,6 +1656,9 @@ class NetworkExecutable:
         add_launch_counts(g.launches)
         self.graph_replays += 1
         with trace.span("executor.check"):
+            if packed:
+                self.last_check = g.ok
+                return self._to_host(g.packed, g.outs)
             self.last_check = g.ok.clone()
             return self._per_projection([z.clone() for z in g.outs])
 
@@ -1577,8 +1788,9 @@ def validate_spike_outputs(
     """Post-launch guard: every output train must be a servable spike train.
 
     Checks, per projection output: shape ``(steps, batch, n_target)``
-    (``sizes`` supplies the expected widths when known), float32 dtype,
-    and every entry exactly 0.0 or 1.0.  The binary check subsumes
+    (``sizes`` supplies the expected widths when known), float32 dtype
+    (a device train's) or uint8 (a served reply's, :class:`PackedTrains`),
+    and every entry exactly 0 or 1.  The binary check subsumes
     finiteness — NaN and Inf compare unequal to both 0 and 1 — and the
     raised message still distinguishes the two.  Accepts numpy arrays and
     tensors.  Raises :class:`OutputValidationError`; returns ``None`` on
@@ -1596,9 +1808,10 @@ def validate_spike_outputs(
                 f"projection {i}: expected (T, B, n_target) shape starting "
                 f"{want}; got {arr.shape}"
             )
-        if arr.dtype != np.float32:
+        if arr.dtype not in (np.float32, np.uint8):
             raise OutputValidationError(
-                f"projection {i}: expected float32 spikes; got {arr.dtype}"
+                f"projection {i}: expected float32 or uint8 spikes; got "
+                f"{arr.dtype}"
             )
         if not bool(np.all((arr == 0.0) | (arr == 1.0))):
             kind = (

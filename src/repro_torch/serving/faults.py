@@ -204,7 +204,8 @@ class FaultInjector:
     def after_launch(self, outs, micro_batch, path: str):
         """Corrupt completed outputs if an armed corruption fault matches.
 
-        Returns host *copies* of the launch outputs with the corruption
+        Returns host *copies* of the launch outputs, widened to float32 so
+        that a NaN, an Inf or a 2 can be written, with the corruption
         applied — the device/cache buffers are never mutated, so a retry
         of the same launch produces clean results.
         """
@@ -212,7 +213,7 @@ class FaultInjector:
         if spec is None:
             return outs
         self.injected[spec.kind] += 1
-        host = [np.array(a) for a in host_arrays(outs)]
+        host = [np.array(a, dtype=np.float32) for a in host_arrays(outs)]
         layer = int(self.rng.integers(len(host)))
         arr = host[layer]
         pos = tuple(int(self.rng.integers(d)) for d in arr.shape)

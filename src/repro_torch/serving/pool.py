@@ -47,6 +47,7 @@ from .. import trace
 from ..core.layer import SNNNetwork
 from ..core.runtime import (
     NetworkExecutable,
+    PackedTrains,
     lowering_total,
     network_executable,
     release_network_executable,
@@ -62,25 +63,20 @@ class UnknownModel(KeyError):
 
 
 def host_arrays(outs) -> List[np.ndarray]:
-    """Launch outputs as NumPy arrays, each distinct tensor copied once.
+    """Launch outputs as NumPy arrays on the host.
 
-    Fan-in entries alias one tensor, and share its one host copy; NumPy
-    entries (a fault injector's corrupted copies) pass through.
+    A pool launch's :class:`~repro_torch.core.runtime.PackedTrains` are
+    cut from one fresh copy of their host buffer, which the next launch
+    overwrites (``d2h_bytes``: the packed bytes the launch moved); fan-in
+    entries share one array.  NumPy entries (a fault injector's corrupted
+    copies) pass through.
     """
-    copies: Dict[int, np.ndarray] = {}
-    host = []
     with trace.span("supervisor.host_copy") as sp:
-        for z in outs:
-            if isinstance(z, torch.Tensor):
-                a = copies.get(id(z))
-                if a is None:
-                    a = copies[id(z)] = z.detach().cpu().numpy()
-                    if sp:
-                        trace.count("d2h_bytes", a.nbytes)
-                host.append(a)
-            else:
-                host.append(np.asarray(z))
-    return host
+        if isinstance(outs, PackedTrains):
+            if sp:
+                trace.count("d2h_bytes", outs.nbytes)
+            return outs.arrays()
+        return [np.asarray(z) for z in outs]
 
 
 def wait_for_device(exe: NetworkExecutable) -> None:
@@ -177,9 +173,9 @@ class ExecutablePool:
         #: ``after_launch`` may corrupt outputs).  ``None`` = no injection;
         #: the hooks cost nothing on the fault-free path.
         self.fault_injector = fault_injector
-        #: In-graph output self-check of the most recent launch (device
+        #: Output self-check of the most recent blocking launch (host
         #: bool scalar, see :meth:`run_microbatch`); None before any
-        #: launch or after a failed one.
+        #: launch, after a failed one, or after one that did not block.
         self.last_launch_check = None
         #: LRU order: least-recently-used first.
         self._entries: "OrderedDict[str, PoolEntry]" = OrderedDict()
@@ -281,25 +277,29 @@ class ExecutablePool:
         cost model will pick for that batch under steady-state traffic
         (the entries are keyed by the form tuple) — sparse-storage models
         build their ELL operands here, never on the serving hot path, and
-        the kernels load on the card here too.  On the card each shape
-        is then captured as a CUDA graph, which later launches of it
-        replay.  Returns the number of shapes newly warmed.  After warmup
-        those buckets are all hits and :meth:`relowerings` stays at zero.
+        the kernels load on the card here too.  Each launch is the pool's
+        own (:meth:`~repro_torch.core.runtime.NetworkExecutable.run_packed`
+        on a uint8 train), so the host buffers of its copies reach the
+        largest warmed bucket here.  On the card each shape is then
+        captured as a CUDA graph, which later launches of it replay.
+        Returns the number of shapes newly warmed.  After warmup those
+        buckets are all hits and :meth:`relowerings` stays at zero.
         """
         entry = self.entry(name)
         exe = entry.executable          # refreshes the warm set if rebuilt
-        paths = [("fused", exe.run_device)]
+        paths = ["fused"]
         if self.full_bucket_path == "batched":
-            paths.append(("batched", exe.run_batched))
+            paths.append("batched")
         warmed = 0
         for key in buckets:
             fresh = False
-            dummy = np.zeros(key.shape, np.float32)
+            dummy = np.zeros(key.shape, np.uint8)
             valid = np.zeros(key.batch, np.int32)
-            for path, launch in paths:
+            for path in paths:
                 if (key.shape, path) in entry.warm_shapes:
                     continue
-                launch(dummy, valid_steps=valid)
+                exe.run_packed(dummy, valid_steps=valid,
+                               batched=path == "batched")
                 wait_for_device(exe)
                 entry.warm_shapes.add((key.shape, path))
                 fresh = True
@@ -340,7 +340,7 @@ class ExecutablePool:
         block: bool = True,
         path: Optional[str] = None,
     ):
-        """Run one padded micro-batch; returns per-layer device tensors.
+        """Run one padded micro-batch; returns its per-projection trains.
 
         Routes to ``micro_batch.model`` unless ``name`` overrides it.
         ``path`` overrides the pool's routing policy — default: **full**
@@ -351,14 +351,21 @@ class ExecutablePool:
         returns only after the device finishes, so wall-clock around it
         measures real execution time.
 
-        After a completed launch, ``last_launch_check`` holds the
-        executable's in-graph output self-check (a device scalar: True
-        iff every output entry is exactly 0/1) — what the launch
-        supervisor consumes to validate fault-free results without a
-        host-side pass.  It reflects the *device* result: post-launch
-        injector corruption happens on host copies and is caught by the
-        host validator instead.  A hit on a captured shape replays its
-        CUDA graph; a miss runs eagerly and is captured right after.
+        The trains are 0/1 uint8
+        :class:`~repro_torch.core.runtime.PackedTrains`: views of one host
+        buffer, filled by the launch's one copy from the card, which the
+        model's next launch overwrites
+        (:func:`host_arrays` copies them out).  After a blocking launch,
+        ``last_launch_check`` holds the executable's output self-check (a
+        host bool scalar, True iff every output entry was exactly 0/1,
+        formed on the device from the float32 trains and carried home in
+        the same copy) — what the launch supervisor consumes to validate
+        fault-free results without a host-side pass; after a launch that
+        did not wait for the card it stays None.  It reflects the *device*
+        result: post-launch injector corruption happens on host copies
+        and is caught by the host validator instead.  A hit on a captured
+        shape replays its CUDA graph; a miss runs eagerly and is captured
+        right after.
         """
         self.last_launch_check = None
         if path is None:
@@ -382,23 +389,23 @@ class ExecutablePool:
             )
             if sp:
                 sp.set(hit=hit)
-            launch = exe.run_batched if path == "batched" else exe.run_device
             if path == "batched":
                 entry.batched_launches += 1
             else:
                 entry.fused_launches += 1
             replays = exe.graph_replays
-            outs = launch(
+            outs = exe.run_packed(
                 micro_batch.spikes,
                 valid_steps=micro_batch.valid_steps,
+                batched=path == "batched",
             )
             entry.graph_replays += exe.graph_replays - replays
             if block:
                 wait_for_device(exe)
+                self.last_launch_check = outs.check
             if not hit:
                 key = micro_batch.key
                 entry.graph_captures += exe.capture_graph(key.steps, key.batch)
-            self.last_launch_check = exe.last_check
             if self.fault_injector is not None:
                 # post-launch corruption (NaN/Inf membrane, non-binary
                 # spikes) on host copies — device/cache buffers stay clean

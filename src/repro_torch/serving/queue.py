@@ -1,7 +1,7 @@
 """Request queue — the front door of the serving subsystem.
 
 A request is one spike train for one user: a ``(steps, n_in)`` 0/1 array
-with its own length and input width (``n_in`` may be narrower than the
+(kept as uint8, the width every copy of it moves at) with its own length and input width (``n_in`` may be narrower than the
 target model's input; missing channels are silent neurons).  Each request
 carries its routing and urgency metadata — ``model`` (which registered
 model serves it), ``priority`` (higher dispatches first), and
@@ -44,7 +44,7 @@ class SNNRequest:
     Fields:
 
     * ``request_id`` — unique per queue, monotonically increasing.
-    * ``spikes`` — the ``(steps, n_in)`` 0/1 float32 input train.
+    * ``spikes`` — the ``(steps, n_in)`` 0/1 uint8 input train.
     * ``t_enqueue`` — ``time.perf_counter()`` stamp at submit; latency and
       deadline accounting are measured from here.
     * ``model`` — name of the registered model that must serve this
@@ -60,7 +60,7 @@ class SNNRequest:
     """
 
     request_id: int
-    spikes: np.ndarray          # (steps, n_in) 0/1 float32
+    spikes: np.ndarray          # (steps, n_in) 0/1 uint8
     t_enqueue: float            # perf_counter stamp at submit
     model: str = DEFAULT_MODEL
     priority: int = 0
@@ -125,30 +125,43 @@ class RequestQueue:
         ``ValueError`` — wrong rank, non-numeric dtype, non-finite
         values (NaN/Inf), or non-binary entries — so garbage never
         reaches a compiled launch, where it would surface as an opaque
-        device-side failure (or a quarantine) batches later.
+        device-side failure (or a quarantine) batches later.  The train
+        is kept as a uint8 copy: a bool or integer one is checked by its
+        extremes, a float one as float32 entry by entry (which tells a
+        non-finite value from a non-binary one).
         """
         raw = np.asarray(spikes)
         if raw.dtype == object or raw.dtype.kind not in "bifu":
             raise ValueError(
                 f"request spikes must be numeric 0/1; got dtype {raw.dtype}"
             )
-        spikes = raw.astype(np.float32)
-        if spikes.ndim != 2 or spikes.shape[0] < 1 or spikes.shape[1] < 1:
+        if raw.ndim != 2 or raw.shape[0] < 1 or raw.shape[1] < 1:
             raise ValueError(
-                f"request spikes must be (steps, n_in); got {spikes.shape}"
+                f"request spikes must be (steps, n_in); got {raw.shape}"
             )
-        bad = ~((spikes == 0.0) | (spikes == 1.0))
-        if bad.any():
-            n_bad = int(bad.sum())
-            if not np.isfinite(spikes).all():
+        if raw.dtype.kind == "f":
+            wide = raw.astype(np.float32)
+            bad = ~((wide == 0.0) | (wide == 1.0))
+            if bad.any():
+                n_bad = int(bad.sum())
+                if not np.isfinite(wide).all():
+                    raise ValueError(
+                        f"request spikes contain non-finite values "
+                        f"({n_bad} bad entries); trains must be 0/1"
+                    )
                 raise ValueError(
-                    f"request spikes contain non-finite values "
-                    f"({n_bad} bad entries); trains must be 0/1"
+                    f"request spikes must be binary 0/1; "
+                    f"{n_bad} entries are neither"
                 )
+        elif raw.dtype.kind != "b" and (
+            raw.max() > 1 or (raw.dtype.kind == "i" and raw.min() < 0)
+        ):
+            n_bad = int(((raw != 0) & (raw != 1)).sum())
             raise ValueError(
                 f"request spikes must be binary 0/1; "
                 f"{n_bad} entries are neither"
             )
+        spikes = raw.astype(np.uint8)
         if deadline_ms is not None and deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0; got {deadline_ms}")
         req = SNNRequest(

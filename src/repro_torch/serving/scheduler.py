@@ -75,7 +75,7 @@ class MicroBatch:
 
     key: BucketKey
     requests: List[SNNRequest]             # <= key.batch, admission order
-    spikes: np.ndarray                     # key.shape f32, zero-padded
+    spikes: np.ndarray                     # key.shape 0/1 u8, zero-padded
     valid_steps: np.ndarray                # (key.batch,) i32; 0 = empty slot
     model: str = DEFAULT_MODEL             # routing key into the pool
     #: True when this launch was forced by the partial-bucket age-out
@@ -321,7 +321,7 @@ def pad_microbatch(
     bucket hits instead of fresh compiles).
     """
     with trace.span("scheduler.pad") as sp:
-        spikes = np.zeros(key.shape, np.float32)
+        spikes = np.zeros(key.shape, np.uint8)
         valid = np.zeros(key.batch, np.int32)
         for b, req in enumerate(requests):
             spikes[: req.steps, b, : req.n_in] = req.spikes

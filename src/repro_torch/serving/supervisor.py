@@ -32,9 +32,11 @@ supervisor turns launch failures into *bounded, accounted-for events*:
    (failure).
 5. **Output validation** — launches self-check on the device: the
    executor reduces every output train to one "all entries exactly 0/1"
-   flag (:attr:`~repro_torch.core.runtime.NetworkExecutable.last_check`)
-   that the launch never reads back, so fault-free validation costs one
-   flag read instead of a host-side pass over the data.  When a fault injector is installed (its corruption lands on
+   flag (:attr:`~repro_torch.core.runtime.NetworkExecutable.last_check`),
+   formed from the float32 trains before they are packed as uint8 and
+   carried home in the launch's one copy, so fault-free validation costs
+   one byte's read instead of a host-side pass over the data.  When a
+   fault injector is installed (its corruption lands on
    host copies the device flag cannot see) the reference
    :func:`repro_torch.core.runtime.validate_spike_outputs` pass runs
    instead.  Either way a corrupted result is a retryable *fault*,
@@ -336,10 +338,10 @@ class LaunchSupervisor:
             if check is not None and getattr(
                 self.pool, "fault_injector", None
             ) is None:
-                if sp:
+                if sp and check.device.type != "cpu":
                     trace.count("d2h_bytes", check.element_size() * check.numel())
-                # one read of the device flag (a CUDA tensor has no NumPy
-                # view)
+                # the flag came home with the trains; a flag still on the
+                # card is read back here
                 return bool(check.item())
             try:
                 validate_spike_outputs(

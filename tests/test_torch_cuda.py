@@ -831,7 +831,7 @@ def test_the_pool_drops_graphs_on_eviction_and_recaptures_on_revival(card):
     reqs = [SNNRequest(i, (rng.random((int(s), 2048)) < 0.2).astype(np.float32),
                        0.0, model="a") for i, s in enumerate([16, 9, 3, 16, 12])]
     mb = pad_microbatch(key, reqs, "a")
-    want = [z.cpu() for z in pool.run_microbatch(mb)]
+    want = [z.clone() for z in pool.run_microbatch(mb)]
     assert pool.counters_by_model()["a"]["graph_replays"] == 1
     pool.register(net, reports["parallel"], "b")      # evicts "a"
     assert exe._graphs == {} and pool.peek("a").report.executable is None
@@ -846,6 +846,182 @@ def test_the_pool_drops_graphs_on_eviction_and_recaptures_on_revival(card):
     revived = pool.peek("a").report.executable
     assert revived is not exe and len(revived._graphs) == 1
     assert pool.counters_by_model()["b"]["graph_captures"] == 1
+
+
+# -- spikes across PCIe as uint8 ----------------------------------------------
+
+
+def _staged_requests(n_input, lengths, seed, stimulus=None):
+    """Port requests of the given lengths: 0/1 uint8 trains, drawn at 0.2
+    or cut from ``stimulus`` (a ``(T, B, n_input)`` train, one lane each)."""
+    from repro_torch.serving import SNNRequest
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, s in enumerate(lengths):
+        x = (rng.random((s, n_input)) < 0.2) if stimulus is None else \
+            np.asarray(stimulus)[:s, i] != 0
+        reqs.append(SNNRequest(i, x.astype(np.uint8), 0.0, model="m"))
+    return reqs
+
+
+def _warm_pool(card, net, report, key):
+    from repro_torch.serving import ExecutablePool
+
+    pool = ExecutablePool(device=card)
+    pool.register(net, report, "m")
+    pool.warmup([key], name="m")
+    return pool
+
+
+def _scaffold_100k():
+    """The 100k cerebellum (two inputs), compiled."""
+    from repro_torch.scaffold import build_cerebellum, compile_scaffold
+
+    sc = build_cerebellum(100_000, seed=2024)
+    return sc, compile_scaffold(sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["gesture", "scaffold-100k"])
+def test_a_staged_replay_equals_the_eager_launch(card, shape):
+    """The pool's launch of a warmed shape replays its graph from the uint8
+    train staged in pinned memory, and its packed uint8 replies are bitwise
+    the eager loop's float32 trains, on a full and a partial micro-batch,
+    at gesture's shape and at the 100k scaffold's (two inputs)."""
+    from repro_torch.core.runtime import NetworkExecutable
+    from repro_torch.serving import BucketKey, pad_microbatch
+    from repro_torch.serving.pool import host_arrays
+
+    if shape == "gesture":
+        net, report = _gesture("ideal")
+        key, stim = BucketKey(steps=32, n_in=2048, batch=8), None
+    else:
+        sc, report = _scaffold_100k()
+        net = sc.network
+        key = BucketKey(steps=16, n_in=net.n_input, batch=8)
+        stim = sc.stimulus(16, 8, seed=93)
+    pool = _warm_pool(card, net, report, key)
+    exe = pool.peek("m").report.executable
+    assert exe._staging.is_pinned() and exe._replies.is_pinned()
+    eager = NetworkExecutable.build(net, report, device=card)
+    lengths = [32, 9, 1, 32, 17, 30, 2, 32] if shape == "gesture" else \
+        [16, 9, 1, 16, 12, 16, 3, 16]
+    reqs = _staged_requests(net.n_input, lengths, 5, stim)
+    for mb in (pad_microbatch(key, reqs, "m"), pad_microbatch(key, reqs[:5], "m")):
+        replays = exe.graph_replays
+        got = host_arrays(pool.run_microbatch(mb))
+        assert exe.graph_replays == replays + 1 and bool(pool.last_launch_check)
+        want = eager.run_device(mb.spikes, valid_steps=mb.valid_steps)
+        packed = host_arrays(eager.run_packed(mb.spikes, valid_steps=mb.valid_steps))
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == len(packed)
+        for a, w, p in zip(got, want, packed):
+            assert a.dtype == p.dtype == np.uint8
+            np.testing.assert_array_equal(a, w.cpu().numpy())
+            np.testing.assert_array_equal(p, a)
+        assert sum(int(a.sum()) for a in got) > 0
+
+
+@pytest.mark.cuda
+def test_a_reply_holds_its_values_after_the_next_launch_on_card(card):
+    """A served reply is cut from a fresh copy of the pinned buffer, which
+    the next launch's copy fills again: it keeps its values, the launch's
+    own views do not."""
+    from repro_torch.serving import BucketKey, pad_microbatch
+    from repro_torch.serving.pool import host_arrays
+
+    net, report = _gesture("ideal")
+    key = BucketKey(steps=16, n_in=2048, batch=8)
+    pool = _warm_pool(card, net, report, key)
+    first = pad_microbatch(key, _staged_requests(2048, [16] * 8, 6), "m")
+    second = pad_microbatch(key, _staged_requests(2048, [16] * 8, 7), "m")
+    outs = pool.run_microbatch(first)
+    host = host_arrays(outs)
+    kept = [a.copy() for a in host]
+    assert outs.host.is_pinned()
+    assert not any(np.shares_memory(a, outs.host.numpy()) for a in host)
+    again = host_arrays(pool.run_microbatch(second))
+    for a, k in zip(host, kept):
+        np.testing.assert_array_equal(a, k)
+    views = [z.numpy() for z in outs]
+    assert any(not np.array_equal(v, k) for v, k in zip(views, kept))
+    for v, g in zip(views, again):
+        np.testing.assert_array_equal(v, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", ["eager", "replay"])
+def test_a_planted_half_clears_the_launch_check_on_card(card, monkeypatch, launch):
+    """A 0.5 written into a float32 train on the card before the pack casts
+    to 0 in the reply, but the flag is formed before the cast: the pool's
+    check is False, in the eager launch and in the graph captured from it."""
+    import repro_torch.core.runtime.executor as executor
+    from repro_torch.serving import BucketKey, ExecutablePool, pad_microbatch
+    from repro_torch.serving.pool import host_arrays
+
+    step = executor.lif_step
+
+    def half(edges, v, z, out, t, **kw):
+        row = step(edges, v, z, out, t, **kw)
+        if t == 3:
+            out[0, 0].fill_(0.5)          # a kernel: a capture may hold it
+        return row
+
+    monkeypatch.setattr(executor, "lif_step", half)
+    net, report = _gesture("ideal")
+    key = BucketKey(steps=16, n_in=2048, batch=8)
+    pool = ExecutablePool(device=card)
+    pool.register(net, report, "m")
+    if launch == "replay":
+        pool.warmup([key], name="m")
+    mb = pad_microbatch(key, _staged_requests(2048, [16] * 8, 8), "m")
+    exe = pool.peek("m").report.executable
+    replays = exe.graph_replays
+    outs = pool.run_microbatch(mb)
+    assert exe.graph_replays == replays + (launch == "replay")
+    assert pool.last_launch_check is not None
+    assert not bool(pool.last_launch_check)
+    assert all(int(a[3, 0, 0]) == 0 for a in host_arrays(outs))
+
+
+@pytest.mark.cuda
+def test_a_served_launch_copies_once_each_way_through_pinned_memory(card):
+    """Under the profiler, each supervised launch of a warmed shape, full
+    (run_batched's) or partial (run_device's), is one HtoD copy and one
+    DtoH copy, neither of pageable memory; the flag read copies nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import BucketKey, ServingEngine, pad_microbatch
+
+    net, report = _gesture("ideal")
+    engine = ServingEngine(net, report, micro_batch=8, min_bucket_steps=16,
+                           device=card)
+    engine.warmup([16])
+    key = BucketKey(steps=16, n_in=2048, batch=8)
+    reqs = _staged_requests(2048, [16, 9, 3, 16, 12, 16, 1, 16], 9)
+    mbs = [pad_microbatch(key, reqs, "default"),
+           pad_microbatch(key, reqs[:3], "default")]
+    for mb in mbs:
+        engine.supervisor.run(mb)
+    # a profiler's first start in a process may miss the first device op
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=card).add_(1)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for mb in mbs * 2:
+            replies = engine.supervisor.run(mb)
+            assert all(isinstance(r, list) for r in replies.values())
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events()
+              if str(e.device_type).endswith("CUDA") and "Memcpy" in e.name]
+    h2d = [n for n in copies if "HtoD" in n]
+    d2h = [n for n in copies if "DtoH" in n]
+    assert len(h2d) == len(d2h) == 4, copies
+    assert all("Pinned" in n and "Pageable" not in n for n in h2d + d2h), copies
+    c = engine.pool.counters_by_model()["default"]
+    assert c["graph_replays"] == c["batched_launches"] + c["fused_launches"] == 6
 
 
 @pytest.mark.cuda

@@ -15,14 +15,22 @@ import torch
 import repro_torch.core as P
 import repro_torch.serving as PS
 from repro_torch import trace
-from repro_torch.core.runtime import NetworkExecutable, network_executable
+from repro_torch.core.runtime import (
+    NetworkExecutable,
+    PackedTrains,
+    network_executable,
+)
 from repro_torch.core.runtime.executor import (
     _all_binary,
     _init_graph_carry,
     _LaunchGraph,
+    _pack,
     _scan_network,
+    _staged_size,
+    _unstage,
 )
 from repro_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
+from repro_torch.serving.pool import host_arrays
 
 MICRO = 4
 
@@ -146,16 +154,26 @@ def test_the_pool_captures_nothing_on_the_cpu(tracing):
 
 class StandInGraph:
     """On the CPU, a captured launch's stand-in: each replay reruns the
-    launch's loop from the buffers into the outputs, as the graph would."""
+    launch's loop from the staged buffer (the uint8 train behind the valid
+    steps) into the outputs, the flag and their packed copy, as the graph
+    would."""
 
     def __init__(self, exe, forms, steps, batch):
         self.exe, self.forms = exe, forms
-        self.spikes = torch.zeros((steps, batch, exe.n_input))
-        self.valid = torch.zeros(batch, dtype=torch.int32)
+        self.staged = torch.zeros(_staged_size(steps, batch, exe.n_input, True),
+                                  dtype=torch.uint8)
+        self.spikes, self.valid = _unstage(self.staged, steps, batch,
+                                           exe.n_input, True)
         self.outs = tuple(torch.zeros((steps, batch, exe.plan.pop_sizes[p]))
                           for p in exe.plan.update_order)
         self.ok = torch.zeros((), dtype=torch.bool)
+        self.packed = torch.zeros(exe._packed_size(steps, batch),
+                                  dtype=torch.uint8)
         self.replays = 0
+
+    def launch_graph(self, launches):
+        return _LaunchGraph(self, self.staged, self.spikes, self.valid,
+                            self.outs, self.ok, self.packed, launches)
 
     def replay(self):
         exe = self.exe
@@ -167,6 +185,7 @@ class StandInGraph:
         for o, z in zip(self.outs, outs):
             o.copy_(z)
         self.ok.copy_(_all_binary(outs, exe.device))
+        _pack(self.outs, self.ok, self.packed)
         self.replays += 1
 
 
@@ -187,8 +206,7 @@ def test_a_replay_copies_in_counts_and_clones_out(tracing, kept_counts, path):
     want = [[z.clone() for z in exe.run_device(x, valid_steps=valid)] for x in xs]
     forms = exe.serial_forms(batch)
     stand_in = StandInGraph(exe, forms, steps, batch)
-    exe._graphs[(forms, steps, batch, True)] = _LaunchGraph(
-        stand_in, stand_in.spikes, stand_in.valid, stand_in.outs, stand_in.ok,
+    exe._graphs[(forms, steps, batch, True)] = stand_in.launch_graph(
         {"lif_step": 7})
     report.serial_forms.clear()
     exe._entries.clear()
@@ -219,9 +237,10 @@ def test_a_replay_copies_in_counts_and_clones_out(tracing, kept_counts, path):
         ({"steps": steps, "graph": "replay", "event_rows": rows},
          {"kernel_launches": 7, "event_driven": 0,
           "event_swept": steps * forms.count("event")})] * 2
+    # the train crosses as uint8, behind the valid steps
     h2d = [r.counts["h2d_bytes"] for r in trace.records()
            if r.name == "executor.inputs"]
-    assert h2d == [xs[0].nbytes + valid.nbytes] * 2
+    assert h2d == [xs[0].size + valid.nbytes] * 2
     # another shape, and a launch without valid steps, run the eager loop
     trace.clear()
     exe.run_device(xs[0][:4], valid_steps=np.minimum(valid, 4))
@@ -235,8 +254,8 @@ def stand_in_for(exe, steps, batch):
     """Install a stand-in graph for a masked ``(steps, batch)`` launch."""
     forms = exe.serial_forms(batch)
     g = StandInGraph(exe, forms, steps, batch)
-    exe._graphs[(forms, steps, batch, True)] = _LaunchGraph(
-        g, g.spikes, g.valid, g.outs, g.ok, {"sparse_gather": 2})
+    exe._graphs[(forms, steps, batch, True)] = g.launch_graph(
+        {"sparse_gather": 2})
     return g
 
 
@@ -265,7 +284,7 @@ def test_the_pool_counts_the_launches_that_replay(kept_counts):
         assert bool(pool.last_launch_check)
         for a, b in zip(outs, eager.run_device(mb.spikes,
                                                valid_steps=mb.valid_steps)):
-            assert torch.equal(a, b)
+            assert a.dtype == torch.uint8 and torch.equal(a.float(), b)
     c = pool.counters_by_model()["m"]
     assert (c["graph_replays"], c["graph_captures"]) == (2, 0)
     assert g.replays == 2
@@ -273,3 +292,87 @@ def test_the_pool_counts_the_launches_that_replay(kept_counts):
     assert launch_counts()["sparse_gather"] == 4
     pool.evict("m")
     assert exe._graphs == {}
+
+
+def pool_and_batches(seed=9):
+    """A CPU pool over the fan-in net, warmed at one bucket, and two padded
+    micro-batches of other trains at it (a partial one and a full one)."""
+    net, report = fan_in_net()
+    pool = PS.ExecutablePool(device="cpu")
+    pool.register(net, report, "m")
+    key = PS.BucketKey(steps=8, n_in=net.n_input, batch=MICRO)
+    pool.warmup([key], name="m")
+    rng = np.random.default_rng(seed)
+    mbs = []
+    for lengths in ([8, 3, 5], [6, 8, 1, 7]):
+        reqs = [PS.SNNRequest(i, (rng.random((s, net.n_input)) < 0.4)
+                              .astype(np.uint8), 0.0, model="m")
+                for i, s in enumerate(lengths)]
+        mbs.append(PS.pad_microbatch(key, reqs, "m"))
+    return net, report, pool, mbs
+
+
+def test_a_reply_keeps_its_values_after_the_next_launch():
+    """A launch's trains are uint8 views of the one host buffer its copy
+    fills, which the next launch fills again; ``host_arrays`` cuts them
+    from a copy of it, fan-in entries sharing one array, so what it
+    returned holds its values after the next launch."""
+    net, report, pool, (first, second) = pool_and_batches()
+    eager = NetworkExecutable.build(net, report, device="cpu")
+    outs = pool.run_microbatch(first)
+    assert isinstance(outs, PackedTrains)
+    host = host_arrays(outs)
+    kept = [a.copy() for a in host]
+    assert host[2] is host[3] and outs[2] is outs[3]
+    assert all(a.dtype == np.uint8 for a in host)
+    assert all(not np.shares_memory(a, outs.host.numpy()) for a in host)
+    pool.run_microbatch(second)
+    want = eager.run_device(second.spikes, valid_steps=second.valid_steps)
+    for view, a, k, w in zip(outs, host, kept, want):
+        np.testing.assert_array_equal(a, k)          # the copy held
+        assert torch.equal(view.float(), w)          # the view was refilled
+    assert sum(int(a.sum()) for a in kept) > 0
+
+
+def test_a_non_binary_train_clears_the_flag_before_the_pack(monkeypatch):
+    """A 0.5 written into a float32 train reads as 0 once packed as uint8,
+    but the flag is formed before the cast: the launch's check is False,
+    and the supervisor's guard rejects the launch."""
+    import repro_torch.core.runtime.executor as executor
+
+    step = executor.lif_step
+
+    def half(edges, v, z, out, t, **kw):
+        row = step(edges, v, z, out, t, **kw)
+        if t == 1:
+            out[0, 0] = 0.5
+        return row
+
+    net, report, pool, (first, _) = pool_and_batches()
+    outs = pool.run_microbatch(first)
+    assert bool(pool.last_launch_check)
+    monkeypatch.setattr(executor, "lif_step", half)
+    outs = pool.run_microbatch(first)
+    assert not bool(pool.last_launch_check)
+    assert not bool(outs.check)
+    assert {int(a[1, 0, 0]) for a in host_arrays(outs)} <= {0}
+    sup = PS.LaunchSupervisor(pool)
+    assert sup._attempt(first, "fused") == ("validation", None)
+
+
+def test_padded_steps_and_slots_reply_exact_zeros():
+    """The padded micro-batch is uint8 and zero past each request's steps
+    and width, and in its empty slots; so are the replies there."""
+    net, report, pool, (first, _) = pool_and_batches()
+    assert first.spikes.dtype == np.uint8
+    live = np.zeros(first.key.shape, bool)
+    for b, req in enumerate(first.requests):
+        live[: req.steps, b, : req.n_in] = True
+        np.testing.assert_array_equal(first.spikes[: req.steps, b, : req.n_in],
+                                      req.spikes)
+    assert not first.spikes[~live].any()
+    assert list(first.valid_steps) == [8, 3, 5, 0]
+    for a in host_arrays(pool.run_microbatch(first)):
+        for b, v in enumerate(first.valid_steps):
+            assert not a[v:, b].any()
+        assert a[:, :3].any()

@@ -5,13 +5,18 @@ on the CPU) and ``repro_torch.serving.ServingEngine(device="cpu")``: two
 small models, no deadlines, and only ``drain()`` / ``step_continuous()``,
 so that no scheduling decision depends on the wall clock.  Replies must
 be bitwise equal, and so must the scheduler's, the pool's and the
-supervisor's counters, with and without a seeded fault storm.  The host
-copies (queue, scheduler, metrics, fault tolerance, placement) are held
-to the originals statement for statement.
+supervisor's counters, with and without a seeded fault storm.  The port
+carries spikes as 0/1 uint8 where the reference carries float32: replies
+are held to the reference's value for value, and the queue and the
+scheduler to its behaviour on the same seeded request streams.  The other
+host copies (metrics, fault tolerance, placement) are held to the
+originals statement for statement.
 """
 import ast
 import asyncio
 import inspect
+import itertools
+import time
 
 import numpy as np
 import pytest
@@ -99,6 +104,8 @@ def serve(side, reqs, *, warm=True, step_every=3, **kw):
 
 
 def assert_replies_equal(got, want):
+    """The port's replies (0/1 uint8) equal the reference's (float32)
+    value for value."""
     assert got.keys() == want.keys()
     for rid in want:
         a, b = got[rid], want[rid]
@@ -107,7 +114,8 @@ def assert_replies_equal(got, want):
         if isinstance(b, list):
             assert len(a) == len(b)
             for x, y in zip(a, b):
-                assert x.dtype == y.dtype == np.float32 and x.shape == y.shape
+                assert x.dtype == np.uint8 and y.dtype == np.float32
+                assert x.shape == y.shape
                 np.testing.assert_array_equal(x, y)
 
 
@@ -332,10 +340,194 @@ def _code(module):
     return ast.dump(tree)
 
 
+#: payload dtypes of the seeded request streams, one a request in turn
+PAYLOAD_DTYPES = (np.float32, np.uint8, np.bool_, np.int32, np.float64)
+#: malformed payloads: (what, payload)
+MALFORMED = [
+    ("nan", np.array([[0.0, np.nan], [1.0, 0.0]], np.float32)),
+    ("inf", np.array([[np.inf, 0.0]])),
+    ("two", np.array([[0, 2], [1, 0]], np.int32)),
+    ("minus_one", np.array([[-1, 0, 1]], np.int64)),
+    ("half", np.array([[0.5, 1.0]], np.float32)),
+    ("object", np.array([[0, 1]], dtype=object)),
+    ("rank_1", np.zeros(5, np.uint8)),
+    ("rank_3", np.zeros((2, 3, 4), np.float32)),
+    ("empty", np.zeros((0, 3), np.bool_)),
+]
+
+
+def request_stream(seed, n=40):
+    """Seeded requests ``(spikes, model, priority, deadline_ms)`` for the
+    queue and the scheduler: the payloads' dtypes in turn."""
+    rng = np.random.default_rng(seed)
+    stream = []
+    for i in range(n):
+        model = "b" if rng.random() < 0.35 else "default"
+        width = MODELS[model][0][0]
+        shape = (int(rng.integers(1, 20)), int(rng.integers(1, width + 1)))
+        x = (rng.random(shape) < 0.3).astype(PAYLOAD_DTYPES[i % 5])
+        deadline = [None, 5.0, 20.0, 100.0][int(rng.integers(4))]
+        stream.append((x, model, int(rng.integers(0, 3)), deadline))
+    return stream
+
+
+def fake_clock(monkeypatch):
+    """``time.perf_counter`` reads 0, 1, 2 ... ms from here on, so both
+    sides stamp the same stream alike."""
+    ticks = itertools.count()
+    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks) * 1e-3)
+
+
+def submitted(queue_mod, stream, monkeypatch, **kw):
+    """The stream submitted to a fresh queue of ``queue_mod`` on the fake
+    clock: the queue, the requests taken and how many were refused full."""
+    fake_clock(monkeypatch)
+    q = queue_mod.RequestQueue(**kw)
+    taken, full = [], 0
+    for x, model, prio, deadline in stream:
+        try:
+            taken.append(q.submit(x, model=model, priority=prio,
+                                  deadline_ms=deadline))
+        except queue_mod.QueueFull:
+            full += 1
+    return q, taken, full
+
+
+def refusal(queue_mod, payload) -> str:
+    with pytest.raises(ValueError) as err:
+        queue_mod.RequestQueue().submit(payload)
+    return str(err.value)
+
+
+def assert_same_requests(got, want):
+    """Port requests against the reference's: the same ids, routing and
+    deadlines, and trains equal in value (uint8 against float32)."""
+    assert [r.request_id for r in got] == [r.request_id for r in want]
+    for a, b in zip(got, want):
+        assert (a.model, a.priority, a.deadline_ms, a.t_enqueue) == (
+            b.model, b.priority, b.deadline_ms, b.t_enqueue)
+        assert a.spikes.dtype == np.uint8 and b.spikes.dtype == np.float32
+        np.testing.assert_array_equal(a.spikes, b.spikes)
+
+
+def queue_behaves_as_reference(ref, port, monkeypatch):
+    """The same seeded streams: the same ids, refusals when full, pop
+    order (by batches, then the rest at once), shed set at a fixed
+    instant, stored trains equal in value, and each malformed payload
+    refused with the reference's message."""
+    for seed in (11, 12):
+        stream = request_stream(seed)
+        sides = []
+        for mod in (ref, port):
+            q, taken, full = submitted(mod, stream, monkeypatch, max_pending=32)
+            popped = q.pop_batch(5) + q.pop_batch(3, timeout=0.0) + q.pop_all()
+            shed = {r.request_id for r in popped if r.expired(now=0.02)}
+            sides.append((taken, full, popped, shed, q.empty()))
+        (r_taken, r_full, r_pop, r_shed, r_empty), (
+            p_taken, p_full, p_pop, p_shed, p_empty) = sides
+        assert p_full == r_full == 8 and p_empty and r_empty
+        assert_same_requests(p_taken, r_taken)
+        assert_same_requests(p_pop, r_pop)
+        assert p_shed == r_shed and 0 < len(p_shed) < len(p_pop)
+    for _, payload in MALFORMED:
+        assert refusal(port, payload) == refusal(ref, payload)
+
+
+def batches_of(mbs):
+    return [(mb.model, mb.key.shape, [r.request_id for r in mb.requests],
+             mb.valid_steps, mb.spikes, mb.aged_out) for mb in mbs]
+
+
+def scheduler_behaves_as_reference(ref, port, monkeypatch):
+    """The same seeded streams through both schedulers, in wave mode and
+    in continuous admission with an age-out: the same launches in the
+    same order, bucket keys, members, valid steps and age-out flags, and
+    padded trains equal in value, every padded entry an exact zero."""
+    queues = {ref: RS.queue, port: PS.queue}
+    for seed in (21, 22):
+        stream = request_stream(seed)
+        sides = []
+        for mod in (ref, port):
+            _, reqs, _ = submitted(queues[mod], stream, monkeypatch)
+            sched = mod.ShapeBucketingScheduler(12, micro_batch=MICRO,
+                                                min_bucket_steps=4)
+            sched.set_model_input("b", 9)
+            wave = sched.form_microbatches(reqs)
+            cont = mod.ShapeBucketingScheduler(12, micro_batch=MICRO,
+                                               min_bucket_steps=4,
+                                               max_wait_ms=7.0)
+            cont.set_model_input("b", 9)
+            launched = []
+            for i, req in enumerate(reqs):
+                cont.admit(req)
+                mb = cont.pop_launchable(now=(i + 1) * 1e-3)
+                if mb is not None:
+                    launched.append(mb)
+            while cont.has_open():
+                launched.append(cont.pop_launchable(force=True))
+            sides.append((batches_of(wave), batches_of(launched)))
+        for r_mbs, p_mbs in zip(*sides):
+            assert len(p_mbs) == len(r_mbs) > 4
+            for p, r in zip(p_mbs, r_mbs):
+                assert p[:3] == r[:3] and p[5] == r[5]
+                np.testing.assert_array_equal(p[3], r[3])
+                assert p[4].dtype == np.uint8 and r[4].dtype == np.float32
+                np.testing.assert_array_equal(p[4], r[4])
+            for model, shape, ids, valid, spikes, _ in p_mbs:
+                live = np.zeros(shape, bool)
+                for b, v in enumerate(valid):
+                    width = stream[ids[b]][0].shape[1] if b < len(ids) else 0
+                    live[:v, b, :width] = True
+                assert not spikes[~live].any()
+        assert any(mb[5] for mb in sides[1][1])        # an age-out launched
+
+
+#: host copies held by behaviour, where the port's carries uint8 spikes
+BEHAVIOUR = {"repro_torch.serving.queue": queue_behaves_as_reference,
+             "repro_torch.serving.scheduler": scheduler_behaves_as_reference}
+
+
 @pytest.mark.parametrize("ref,port", [
     (RS.queue, PS.queue), (RS.scheduler, PS.scheduler),
     (RS.metrics, PS.metrics), (r_ft, p_ft),
     (RPL.grid, PPL.grid), (RPL.mapper, PPL.mapper), (RPL.tiling, PPL.tiling),
 ], ids=lambda m: m.__name__)
-def test_host_copy_statements_equal_reference(ref, port):
-    assert _code(port) == _code(ref)
+def test_host_copy_statements_equal_reference(ref, port, monkeypatch):
+    """Statement for statement, but for the queue and the scheduler, which
+    keep trains as uint8 and are held to the reference's behaviour."""
+    if port.__name__ in BEHAVIOUR:
+        BEHAVIOUR[port.__name__](ref, port, monkeypatch)
+    else:
+        assert _code(port) == _code(ref)
+
+
+@pytest.fixture(scope="module")
+def float_traffic_replies():
+    """Seeded float32 traffic and the reference engine's replies to it."""
+    reqs = traffic(12, seed=41)
+    return reqs, serve("ref", reqs)[2]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.bool_, np.int32, np.float32])
+def test_payload_dtypes_give_the_references_replies(dtype,
+                                                    float_traffic_replies):
+    """A payload of any of these dtypes is served as its 0/1 values: the
+    replies equal the reference's to float32 payloads."""
+    reqs, r_rep = float_traffic_replies
+    _, _, p_rep, _ = serve("port", [(m, p, x.astype(dtype)) for m, p, x in reqs])
+    assert_replies_equal(p_rep, r_rep)
+
+
+@pytest.mark.parametrize("what,payload", MALFORMED, ids=[w for w, _ in MALFORMED])
+def test_a_malformed_payload_is_refused_as_the_reference_refuses_it(
+        what, payload):
+    """The engine refuses it with the reference engine's ValueError, and
+    nothing is queued."""
+    port, _ = make_engine("port")
+    ref, _ = make_engine("ref")
+    with pytest.raises(ValueError) as p_err:
+        port.submit(payload)
+    with pytest.raises(ValueError) as r_err:
+        ref.submit(payload)
+    assert str(p_err.value) == str(r_err.value)
+    assert port.queue.empty()
